@@ -1,0 +1,98 @@
+"""End-to-end FTLE pipeline: winds in, FTLE-norm field out — PyTorch.
+
+Counterpart of ``lagrangiancoherence_tpu/models/pipeline.py``: prefilter,
+SETTLS integration, flow-map gradient and the closed-form norm, run eagerly
+on one device.  ``FTLEPipeline`` holds the grid-derived state — the two
+prefilter matrices, ``conv_x`` and the initial mesh — as buffers, so a
+caller that computes many fields on one grid builds it once;
+``ftle_pipeline`` is the one-call form.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from .ftle import flowmap_gradient, ftle_norm
+from .settls import (_as_tensor, grid_state, parcel_propagation_core,
+                     resolve_kernel)
+
+__all__ = ["FTLEPipeline", "ftle_pipeline"]
+
+
+class FTLEPipeline(nn.Module):
+    """(T, ny, nx) winds → (ny, nx) FTLE norm on one grid.
+
+    Semantics are those of ``LCS.__call__``'s core path (quirks Q1-Q6); see
+    models/settls.py and models/ftle.py for the stage contracts.  ``kernel``
+    is ``"auto"``, ``"cuda"`` or ``"torch"`` (``settls.resolve_kernel``).
+    """
+
+    def __init__(self, grid, *, settls_order: int = 0, interp_order: int = 3,
+                 sigma=None, compat: bool = True, kernel: str = "auto",
+                 dtype: torch.dtype = torch.float64, device=None):
+        super().__init__()
+        device = torch.device("cpu" if device is None else device)
+        resolve_kernel(kernel, device, interp_order)   # fail at build time
+        self.grid = grid
+        self.settls_order = settls_order
+        self.interp_order = interp_order
+        self.sigma = sigma
+        self.compat = compat
+        self.kernel = kernel
+        for name, t in grid_state(grid, interp_order, dtype=dtype,
+                                  device=device).items():
+            self.register_buffer(name, t)
+
+    def load_numpy_state(self, arrays: Mapping[str, np.ndarray]) -> None:
+        """Copy host arrays (e.g. the JAX package's prefilter matrices) into
+        the buffers of the same names, keeping each buffer's dtype and
+        device."""
+        buffers = dict(self.named_buffers())
+        for name, a in arrays.items():
+            if name not in buffers:
+                raise KeyError(f"no buffer {name!r}; buffers: "
+                               f"{sorted(buffers)}")
+            buf = buffers[name]
+            a = np.asarray(a)
+            if tuple(a.shape) != tuple(buf.shape):
+                raise ValueError(f"{name}: shape {a.shape} != "
+                                 f"{tuple(buf.shape)}")
+            with torch.no_grad():
+                buf.copy_(torch.tensor(a, dtype=buf.dtype))
+
+    def forward(self, u, v, timestep, return_overflow: bool = False):
+        state = dict(self.named_buffers())
+        device, dtype = state["px0"].device, state["px0"].dtype
+        u, v = _as_tensor(u, device, dtype), _as_tensor(v, device, dtype)
+        px, py, overflow = parcel_propagation_core(
+            u, v, timestep, self.grid, settls_order=self.settls_order,
+            interp_order=self.interp_order, kernel=self.kernel,
+            return_overflow=True, device=device, state=state)
+        norm = ftle_norm(flowmap_gradient(px, py, self.grid, sigma=self.sigma),
+                         compat=self.compat)
+        if return_overflow:
+            return norm, overflow
+        return norm
+
+
+def ftle_pipeline(u, v, timestep, grid, *, settls_order: int = 0,
+                  interp_order: int = 3, sigma=None, compat: bool = True,
+                  kernel: str = "auto", return_overflow: bool = False,
+                  device=None):
+    """(T, ny, nx) winds → (ny, nx) FTLE norm, with ``u``'s dtype.
+
+    ``device``: where to compute; default: ``u``'s device (the CPU for
+    arrays).  With ``return_overflow=True`` the int32 overflow flag (always
+    0 here) is returned alongside the field.
+    """
+    if device is None:
+        device = u.device if isinstance(u, torch.Tensor) else "cpu"
+    u = _as_tensor(u, device)
+    model = FTLEPipeline(grid, settls_order=settls_order,
+                         interp_order=interp_order, sigma=sigma,
+                         compat=compat, kernel=kernel, dtype=u.dtype,
+                         device=u.device)
+    return model(u, v, timestep, return_overflow=return_overflow)

@@ -1,0 +1,103 @@
+"""Build the package's CUDA kernels with ``nvcc`` at first use.
+
+The sources under ``ops/csrc/*.cu`` expose a plain C interface; they are
+compiled into one shared library and loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  The library lands in ``build/kernels/``
+at the repository root, named by a hash of the sources and the flags, so a
+fresh checkout builds on its first call and an edited source rebuilds.
+Nothing is ever downloaded, and a failed build raises with nvcc's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from functools import lru_cache
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build", "load_library"]
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# never --use_fast_math: the kernels rely on IEEE division and rounding
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_GATHER_ARGTYPES = [_PTR, _PTR, _PTR, _PTR, _PTR,       # raw coeffs px py out
+                    _INT, _INT, _INT, _INT, _INT,       # ny nx rows cols row_off
+                    _INT, _INT, ctypes.c_longlong,      # order nf f0
+                    ctypes.c_double, ctypes.c_double,   # x_min x_den
+                    ctypes.c_double, ctypes.c_double,   # y_min y_den
+                    _PTR]                               # stream
+
+
+def _find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, on PATH "
+                       "and in /usr/local/cuda/bin): the CUDA kernels "
+                       "cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"liblcs_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the sources if their library is missing.
+
+    Returns (library path, seconds spent compiling — 0.0 when it already
+    existed, nvcc's messages including ptxas' register and spill report).
+    """
+    lib = library_path()
+    log_path = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, 0.0, log_path.read_text() if log_path.exists() else ""
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
+    os.replace(tmp, lib)   # atomic: a concurrent build loads a whole file
+    return lib, seconds, log
+
+
+@lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """The built kernel library, with every entry point's signature set."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name in ("spline_gather_f32", "spline_gather_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = _GATHER_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
