@@ -17,7 +17,7 @@ from torch import nn
 
 from .ftle import flowmap_gradient, ftle_norm
 from .settls import (_as_tensor, grid_state, parcel_propagation_core,
-                     resolve_kernel)
+                     resolve_engine, resolve_kernel)
 
 __all__ = ["FTLEPipeline", "ftle_pipeline"]
 
@@ -27,21 +27,26 @@ class FTLEPipeline(nn.Module):
 
     Semantics are those of ``LCS.__call__``'s core path (quirks Q1-Q6); see
     models/settls.py and models/ftle.py for the stage contracts.  ``kernel``
-    is ``"auto"``, ``"cuda"`` or ``"torch"`` (``settls.resolve_kernel``).
+    is ``"auto"``, ``"cuda"`` or ``"torch"`` (``settls.resolve_kernel``);
+    ``engine`` is ``"auto"``, ``"dma-all"`` or ``"blockspec"``
+    (``settls.resolve_engine``).
     """
 
     def __init__(self, grid, *, settls_order: int = 0, interp_order: int = 3,
                  sigma=None, compat: bool = True, kernel: str = "auto",
-                 dtype: torch.dtype = torch.float64, device=None):
+                 engine: str = "auto", dtype: torch.dtype = torch.float64,
+                 device=None):
         super().__init__()
         device = torch.device("cpu" if device is None else device)
         resolve_kernel(kernel, device, interp_order)   # fail at build time
+        resolve_engine(engine)
         self.grid = grid
         self.settls_order = settls_order
         self.interp_order = interp_order
         self.sigma = sigma
         self.compat = compat
         self.kernel = kernel
+        self.engine = engine
         for name, t in grid_state(grid, interp_order, dtype=dtype,
                                   device=device).items():
             self.register_buffer(name, t)
@@ -70,7 +75,8 @@ class FTLEPipeline(nn.Module):
         px, py, overflow = parcel_propagation_core(
             u, v, timestep, self.grid, settls_order=self.settls_order,
             interp_order=self.interp_order, kernel=self.kernel,
-            return_overflow=True, device=device, state=state)
+            engine=self.engine, return_overflow=True, device=device,
+            state=state)
         norm = ftle_norm(flowmap_gradient(px, py, self.grid, sigma=self.sigma),
                          compat=self.compat)
         if return_overflow:
@@ -80,19 +86,19 @@ class FTLEPipeline(nn.Module):
 
 def ftle_pipeline(u, v, timestep, grid, *, settls_order: int = 0,
                   interp_order: int = 3, sigma=None, compat: bool = True,
-                  kernel: str = "auto", return_overflow: bool = False,
-                  device=None):
+                  kernel: str = "auto", engine: str = "auto",
+                  return_overflow: bool = False, device=None):
     """(T, ny, nx) winds → (ny, nx) FTLE norm, with ``u``'s dtype.
 
     ``device``: where to compute; default: ``u``'s device (the CPU for
-    arrays).  With ``return_overflow=True`` the int32 overflow flag (always
-    0 here) is returned alongside the field.
+    arrays).  With ``return_overflow=True`` the int32 overflow bitmask
+    (always 0 on the K1 route) is returned alongside the field.
     """
     if device is None:
         device = u.device if isinstance(u, torch.Tensor) else "cpu"
     u = _as_tensor(u, device)
     model = FTLEPipeline(grid, settls_order=settls_order,
                          interp_order=interp_order, sigma=sigma,
-                         compat=compat, kernel=kernel, dtype=u.dtype,
-                         device=u.device)
+                         compat=compat, kernel=kernel, engine=engine,
+                         dtype=u.dtype, device=u.device)
     return model(u, v, timestep, return_overflow=return_overflow)

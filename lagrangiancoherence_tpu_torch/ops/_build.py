@@ -1,11 +1,13 @@
 """Build the package's CUDA kernels with ``nvcc`` at first use.
 
-The sources under ``ops/csrc/*.cu`` expose a plain C interface; they are
-compiled into one shared library and loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  The library lands in ``build/kernels/``
-at the repository root, named by a hash of the sources and the flags, so a
-fresh checkout builds on its first call and an edited source rebuilds.
-Nothing is ever downloaded, and a failed build raises with nvcc's output.
+The sources under ``ops/csrc/*.cu`` (with the shared ``*.cuh`` headers)
+expose a plain C interface.  Each is compiled by its own ``nvcc``, all
+started together, and the objects are linked into one shared library that
+is loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+The library lands in ``build/kernels/`` at the repository root, named by a
+hash of the sources and the flags, so a fresh checkout builds on its first
+call and an edited source rebuilds.  Nothing is ever downloaded, and a
+failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -18,23 +20,38 @@ import time
 from functools import lru_cache
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load_library"]
+__all__ = ["NVCC_FLAGS", "SIGNATURES", "build", "load_library"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # never --use_fast_math: the kernels rely on IEEE division and rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 _GATHER_ARGTYPES = [_PTR, _PTR, _PTR, _PTR, _PTR,       # raw coeffs px py out
                     _INT, _INT, _INT, _INT, _INT,       # ny nx rows cols row_off
-                    _INT, _INT, ctypes.c_longlong,      # order nf f0
+                    _INT, _INT, _LL,                    # order nf f0
                     ctypes.c_double, ctypes.c_double,   # x_min x_den
                     ctypes.c_double, ctypes.c_double,   # y_min y_den
                     _PTR]                               # stream
+# coeffs folds out flags overflow y0map x0map live sel count, n_slots ny nx
+# ny_t nx_t order nf f0 wy wx bit stage_bytes, stream
+_TILE_ARGTYPES = [_PTR] * 10 + [_INT] * 7 + [_LL] + [_INT] * 4 + [_PTR]
+# coeffs folds out flags overflow y0map x0q live, n_tiles ny nx ny_t nx_t
+# order nf f0 wy bit stage_bytes, stream
+_SUB_ARGTYPES = [_PTR] * 8 + [_INT] * 7 + [_LL] + [_INT] * 3 + [_PTR]
+# raw pack ys out flags overflow sel count, n_slots ny nx nf f0 wy bit, stream
+_POLE_ARGTYPES = [_PTR] * 8 + [_INT] * 4 + [_LL] + [_INT] * 2 + [_PTR]
+SIGNATURES = {
+    **{f"spline_gather_{t}": _GATHER_ARGTYPES for t in ("f32", "f64")},
+    **{f"tile_window_gather_{t}": _TILE_ARGTYPES for t in ("f32", "f64")},
+    **{f"sub_window_gather_{t}": _SUB_ARGTYPES for t in ("f32", "f64")},
+    **{f"pole_window_gather_{t}": _POLE_ARGTYPES for t in ("f32", "f64")},
+}
 
 
 def _find_nvcc() -> str:
@@ -56,10 +73,14 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"liblcs_kernels_{digest.hexdigest()[:16]}.so"
@@ -77,16 +98,30 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, log_path.read_text() if log_path.exists() else ""
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    tmp = lib.with_name(f"{tag}.so.tmp")
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]   # wait for every one
+    if all(proc.returncode == 0 for proc in procs):
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        procs.append(subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+        outs.append(procs[-1].stdout)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    log = proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    log = "".join(outs)
     log_path.write_text(log)
     os.replace(tmp, lib)   # atomic: a concurrent build loads a whole file
     return lib, seconds, log
@@ -96,8 +131,8 @@ def build() -> tuple[Path, float, str]:
 def load_library() -> ctypes.CDLL:
     """The built kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(str(build()[0]))
-    for name in ("spline_gather_f32", "spline_gather_f64"):
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _GATHER_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

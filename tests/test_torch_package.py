@@ -69,14 +69,18 @@ def test_cuda_kernel_refuses_cpu_tensors():
 
 def test_cpu_path_never_launches():
     from lagrangiancoherence_tpu_torch import Grid, ftle_pipeline
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp
-    grid = Grid(np.linspace(-90, 90, 9), np.linspace(-180, 160, 10), True)
-    u = torch.ones(3, 9, 10, dtype=torch.float64)
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_window
     before = cuda_interp.LAUNCHES
-    for kernel in ("auto", "torch"):
-        ftle_pipeline(u, 0.5 * u, 3600.0, grid, settls_order=1,
-                      kernel=kernel)
+    # the blockspec route's base window needs 64 padded rows: 33, not 9
+    for ny, engine in ((9, "auto"), (33, "blockspec")):
+        grid = Grid(np.linspace(-90, 90, ny), np.linspace(-180, 160, 10),
+                    True)
+        u = torch.ones(3, ny, 10, dtype=torch.float64)
+        for kernel in ("auto", "torch"):
+            ftle_pipeline(u, 0.5 * u, 3600.0, grid, settls_order=1,
+                          kernel=kernel, engine=engine)
     assert cuda_interp.LAUNCHES == before == 0
+    assert set(cuda_window.LAUNCHES.values()) == {0}
 
 
 def test_kernel_module_imports_without_nvcc_and_build_raises():
@@ -103,7 +107,13 @@ def test_build_names_library_by_source_hash():
     assert path == _build.library_path()
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert [p.name for p in _build._sources()] == ["spline_gather.cu"]
+    assert [p.name for p in _build._sources()] == ["spline_gather.cu",
+                                                   "window_gather.cu"]
+    assert [p.name for p in _build._headers()] == ["gather_math.cuh"]
+    assert set(_build.SIGNATURES) == {
+        f"{k}_{t}" for k in ("spline_gather", "tile_window_gather",
+                             "sub_window_gather", "pole_window_gather")
+        for t in ("f32", "f64")}
 
 
 def test_chip_smoke_fails_without_cuda():
