@@ -12,10 +12,20 @@ SETTLS order 4, float32) through both gather routes — ``engine="auto"``
 (K1) and ``engine="blockspec"`` (K2-K4) — checks the float32 pipelines
 against a scipy oracle, times the kernels and the pipelines against the
 plain versions, and profiles one field of each route (device busy time,
-kernels per field, idle share).  Each phase prints its results; the line
+kernels per field, idle share).  Then it drives the user-facing paths
+through K1: phase 8 runs ``LCS(isglobal=True, truncation=20)`` (the CLI's
+defaults) on the flagship winds — regrid to the common 0.5-degree grid, T20
+truncation, SETTLS-4, the float64 FTLE; a first and a second call timed by
+stage — and phase 8b the area-of-influence
+workflow (LagrangianCoherence LCS/area_of_influence.py, as
+``examples/area_of_influence.py`` runs it) at ERA5's 0.25 degrees: ``LCS``
+with a 3-hourly resample, ``threshold_local``, the Hessian ridges,
+``skeletonize``, ``filter_ridges`` and ``find_area``, each held against the
+same call in float64 on the CPU.  Each phase prints its results; the line
 before the last is the kernel record ``{"kernels": [{"name", "route",
 "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms"}]}``
-(times: medians of CUDA-event trials) and the last line is
+(times: medians of CUDA-event trials; K1's launches summed over phases 4, 8
+and 8b, each counted from 0) and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as does
 a machine without a CUDA device or a directory without the package.
 
@@ -348,6 +358,407 @@ def oracle_ftle(u, v, lats, lons, dt, settls_order, order=ORDER):
     tensor = np.stack(comps + [np.zeros_like(X)] * 3)        # (9, ny, nx)
     return np.linalg.norm(tensor.reshape(3, 3, -1), ord=2,
                           axis=(0, 1)).reshape(X.shape)
+
+
+# ---------------------------------------------------------------------------
+# Phases 8 and 8b: the facade and the area-of-influence workflow
+# ---------------------------------------------------------------------------
+
+DIMS3 = ("time", "latitude", "longitude")
+TRUNCATION = 20          # the CLI's default
+# max |card - CPU| / max |CPU| of the float32 regrid and truncation on the
+# card against the float64 versions on the CPU
+FACADE_F32_REL = 1e-5
+# float32 diagnostics on the card against float64 on the CPU: eigen-
+# quantities within DIAG_REL of their largest value; a mask may differ only
+# where its test lies within DIAG_REL (of the tested quantity's largest
+# value) of its threshold; the walk of find_area within AREA_REL of a mark or
+# snap threshold (relative to the walked distance and the coordinates)
+DIAG_REL = 1e-3
+AREA_REL = 1e-5
+AREA_NT = 16             # six-hourly levels, examples/area_of_influence.py:81
+AREA_WINDOW = 8          # the last 8 levels, resampled to 3 h (:94-98)
+RIDGE_SIGMA, RIDGE_TOL = 1.2, 1e-3          # :115-117 of the example
+FILTER = (["mean_intensity", "major_axis_length"], [1.2, 30.0])   # :119-121
+
+
+def era5_box_winds(nt=AREA_NT, seed=0):
+    """The moisture-flux winds u = viwve/tcwv, v = viwvn/tcwv of
+    examples/area_of_influence.py:42-72,85-86 (its closed forms, rewritten
+    here), at ERA5's 0.25 degrees over the example's box: latitude -40..15
+    and longitude -90..-32, 221 x 233 points, ``nt`` six-hourly levels.
+    Returns (lats, lons, times, u, v), float64."""
+    rng = np.random.RandomState(seed)
+    lats = np.linspace(-40.0, 15.0, 221)
+    lons = np.linspace(-90.0, -32.0, 233)
+    times = np.datetime64("2020-01-20", "ns") \
+        + np.arange(nt) * np.timedelta64(6, "h")
+    LON, LAT = np.meshgrid(lons, lats)
+    t = np.arange(nt)[:, None, None]
+    jet = 250.0 * np.exp(-((LAT + 15.0 - 3 * np.sin(2 * np.pi * t / nt))
+                           / 6.0) ** 2)
+    viwve = jet * (1 + 0.2 * np.sin(2 * np.pi * (LON + 60) / 30.0)) \
+        + 20.0 * rng.randn(nt, lats.size, lons.size) * 0.05
+    viwvn = 100.0 * np.exp(-((LON + 60.0) / 10.0) ** 2) \
+        * np.sin(np.pi * (LAT + 40) / 55.0) + 0.2 * t
+    tcwv = 30.0 + 20.0 * np.cos(np.deg2rad(LAT)) + 0.0 * t
+    return lats, lons, times, viwve / tcwv, viwvn / tcwv
+
+
+class StageClock:
+    """Collects the facade's own stage times: the milliseconds between each
+    ``timed_stage`` banner record and its "took" record."""
+
+    def __init__(self):
+        import logging
+        from lagrangiancoherence_tpu_torch.utils.logging import logger
+
+        class Handler(logging.Handler):
+            def emit(_, record):
+                msg = record.getMessage()
+                if msg.startswith("*---- "):
+                    self._start[msg[6:-6]] = record.created
+                elif " took " in msg:
+                    name = msg.rsplit(" took ", 1)[0]
+                    self.ms[name] = (record.created
+                                     - self._start.pop(name)) * 1e3
+
+        self.logger, self.handler = logger, Handler(logging.INFO)
+        self.ms, self._start = {}, {}
+
+    def __enter__(self):
+        import logging
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| over the points finite in both; inf
+    when the NaN patterns differ."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        return float("inf")
+    fin = np.isfinite(got) & np.isfinite(want)
+    if not fin.any():
+        return 0.0
+    return float(np.abs(got[fin] - want[fin]).max()
+                 / max(np.abs(want[fin]).max(), 1e-300))
+
+
+def hessian_eigenvalues(field, lats, lons):
+    """(lam0, lam1) of the ridges' smoothed spherical Hessian in float64 on
+    the CPU (models/ridges.py: the same steps, isglobal=False)."""
+    import torch
+    from lagrangiancoherence_tpu_torch.models.ridges import symmetric_eig_2x2
+    from lagrangiancoherence_tpu_torch.ops.filters import gaussian_filter
+    from lagrangiancoherence_tpu_torch.ops.stencil import \
+        derivative_spherical_coords as deriv
+    f = gaussian_filter(torch.from_numpy(np.asarray(field, np.float64)),
+                        RIDGE_SIGMA)
+
+    def d(x, dim):
+        return deriv(x, lats, lons, dim=dim, isglobal=False)
+
+    gx, gy = d(f, 1), d(f, 0)
+    a, b, c = (torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+               for x in (d(gx, 1), d(gx, 0), d(gy, 0)))
+    lam0, lam1, _, _ = symmetric_eig_2x2(a, b, c)
+    return lam0.numpy(), lam1.numpy()
+
+
+def area_uncertain(ftle, ev, ridges, lats, lons, max_steps=128):
+    """Cells whose ``find_area`` mark may differ between float32 and float64
+    (models/area.py's walk, in numpy): every cell of the bracketing box of a
+    walk candidate whose mark test ``(k-1) step <= 2r`` lies within AREA_REL
+    of its threshold, or whose position lies within AREA_REL of the
+    midpoint between two grid coordinates, where the nearest-index snap
+    changes."""
+    res = lats[1] - lats[0]
+    sigma = np.exp(ftle) * ridges
+    ev_y, ev_x = ev[..., 0], ev[..., 1]
+    valid = ~np.isnan(sigma) & ~np.isnan(ev_x) & ~np.isnan(ev_y)
+    r = np.where(valid, sigma * 0.5, 0.0)
+    LAT, LON = np.meshgrid(lats, lons, indexing="ij")
+    k = np.arange(1, max_steps + 1, dtype=np.float64)[:, None, None]
+    step = np.sqrt(ev_x * ev_x + ev_y * ev_y) * res
+    d_prev = (k - 1.0) * step
+    near_mark = valid & (np.abs(d_prev - 2.0 * r)
+                         <= AREA_REL * np.maximum(2.0 * r, step))
+    live = valid & ((d_prev <= 2.0 * r) | near_mark)
+    out = np.zeros(ftle.shape, bool)
+    axes = []
+    for lower, comp, coords in ((LON - np.abs(ev_x) * r, ev_x, lons),
+                                (LAT - np.abs(ev_y) * r, ev_y, lats)):
+        pos = lower + k * np.abs(comp) * res
+        mids = 0.5 * (coords[1:] + coords[:-1])
+        j = np.clip(np.searchsorted(mids, pos), 1, mids.size - 1)
+        gap = np.minimum(np.abs(pos - mids[j - 1]), np.abs(pos - mids[j]))
+        near = gap <= AREA_REL * np.abs(coords).max()
+        lo = np.clip(np.searchsorted(coords, pos) - 1, 0, coords.size - 1)
+        axes.append((near, lo, np.minimum(lo + 1, coords.size - 1)))
+    (nx_, xlo, xhi), (ny_, ylo, yhi) = axes
+    pick = live & (near_mark | nx_ | ny_)
+    for yi in (ylo[pick], yhi[pick]):
+        for xi in (xlo[pick], xhi[pick]):
+            out[yi, xi] = True
+    return out
+
+
+def phase_facade(dev, card, check, sync, u64, v64, grid):
+    """Phase 8: ``LCS(isglobal=True)`` at the CLI's defaults on the flagship
+    winds, through K1.  Returns K1's launches in the facade's run."""
+    import torch
+    from lagrangiancoherence_tpu_torch import LCS, Field, parcel_propagation
+    from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
+                                                   COMMON_GRID_LONS)
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp
+    from lagrangiancoherence_tpu_torch.ops.regrid import \
+        regrid_linear_nearest
+    from lagrangiancoherence_tpu_torch.ops.sht import truncate
+    ny, nx = grid.shape
+    log(f"== phase 8: LCS(isglobal=True, truncation={TRUNCATION}) on the "
+        f"flagship winds ({nx}x{ny}, T={NT}, SETTLS-{SETTLS_ORDER}) -> the "
+        f"common grid, through K1 [{card}]")
+    times = np.datetime64("2020-01-01", "ns") \
+        + np.arange(NT) * np.timedelta64(6, "h")
+    coords = {"time": times, "latitude": grid.lats, "longitude": grid.lons}
+    U = Field(u64, DIMS3, coords, name="u")
+    V = Field(v64, DIMS3, coords, name="v")
+    expected = (NT - 1) * (1 + SETTLS_ORDER)
+    sync()
+    cuda_interp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with StageClock() as clock:
+        out = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
+            u=U, v=V, verbose=False, isglobal=True, truncation=TRUNCATION)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = cuda_interp.LAUNCHES
+    log("facade stages, first call (ms): " + json.dumps(
+        {k: round(v, 3) for k, v in clock.ms.items()})
+        + f", wall {wall:.3f} ms [{card}]")
+    check(launches == expected, f"K1 launches in the facade {launches} == "
+          f"{expected}")
+    inner = out.data[0, 5:-5]
+    check(out.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
+          and bool(np.isfinite(inner).all()),
+          f"FTLE shape {out.shape}, rows [5:-5] finite; range "
+          f"[{inner.min():.4g}, {inner.max():.4g}]")
+
+    # the card's float32 regrid and truncation against float64 on the CPU
+    truncated = []
+    for name, a in (("u", u64), ("v", v64)):
+        args = (grid.lats, grid.lons, COMMON_GRID_LATS, COMMON_GRID_LONS)
+        reg = regrid_linear_nearest(a, *args, device=dev)
+        reg64 = regrid_linear_nearest(torch.from_numpy(a), *args,
+                                      device="cpu")
+        trc = truncate(reg.cpu().numpy(), COMMON_GRID_LATS, TRUNCATION,
+                       device=dev).cpu().numpy()
+        trc64 = truncate(reg64, COMMON_GRID_LATS, TRUNCATION,
+                         device="cpu").numpy()
+        e_reg, e_trc = rel_err(reg.cpu().numpy(), reg64), rel_err(trc, trc64)
+        check(reg.dtype == torch.float32 and e_reg <= FACADE_F32_REL
+              and e_trc <= FACADE_F32_REL,
+              f"{name}: f32 card vs f64 CPU: regrid {e_reg:.3e}, "
+              f"T{TRUNCATION} truncation {e_trc:.3e} (<= {FACADE_F32_REL:g} "
+              f"of max)")
+        truncated.append(trc)
+
+    # the same truncated winds: K1 and the plain gather give identical
+    # departure points (K1 is bit-identical to its plain version)
+    ccoords = {"time": times, "latitude": COMMON_GRID_LATS,
+               "longitude": COMMON_GRID_LONS}
+    Ut, Vt = (Field(a, DIMS3, ccoords) for a in truncated)
+    pos = {k: parcel_propagation(Ut, Vt, DT, SETTLS_order=SETTLS_ORDER,
+                                 cyclic_xboundary=True, verbose=False,
+                                 kernel=k, device=dev)
+           for k in ("cuda", "torch")}
+    same = all(np.array_equal(a.data, b.data)
+               for a, b in zip(pos["cuda"], pos["torch"]))
+    check(same, f"departure points on the common grid: kernel='cuda' and "
+          f"kernel='torch' identical={same}")
+
+    # a CLI run is one process per file, so it pays the first call's
+    # set-up (SHT operators, cuFFT plans); a second call shows the rest
+    sync()
+    t0 = time.perf_counter()
+    with StageClock() as clock:
+        LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
+            u=U, v=V, verbose=False, isglobal=True, truncation=TRUNCATION)
+    wall = (time.perf_counter() - t0) * 1e3
+    log("facade stages, second call (ms): " + json.dumps(
+        {k: round(v, 3) for k, v in clock.ms.items()})
+        + f", wall {wall:.3f} ms [{card}]")
+    return launches
+
+
+def phase_area(dev, card, check, sync):
+    """Phase 8b: the area-of-influence workflow of
+    examples/area_of_influence.py:84-149 at ERA5 0.25 degrees over the
+    example's box, through K1, then ``find_area``.  The diagnostics run on
+    the card in the default dtype (float32) and are held against the same
+    calls on the CPU in float64.  Returns K1's launches in the two LCS
+    runs."""
+    import torch
+    from lagrangiancoherence_tpu_torch import (LCS, Field, filter_ridges,
+                                              find_area,
+                                              find_ridges_spherical_hessian)
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp
+    from lagrangiancoherence_tpu_torch.ops.morphology import (skeletonize,
+                                                              threshold_local)
+    lats, lons, times, u, v = era5_box_winds()
+    log(f"== phase 8b: area of influence, {lons.size}x{lats.size} at 0.25 "
+        f"deg, {AREA_NT} levels, SETTLS-{SETTLS_ORDER} with resample='3h' "
+        f"[{card}]")
+    coords = {"time": times, "latitude": lats, "longitude": lons}
+    U = Field(u, DIMS3, coords, name="u")
+    V = Field(v, DIMS3, coords, name="v")
+    window = {"time": slice(-AREA_WINDOW, None)}
+    local = {"time": slice(-2, None)}
+    runs = (("ftle", window, {"resample": "3h"}), ("ftle_local", local, {}))
+    ms = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    # 2. the windowed FTLE and the two-level "local" FTLE (non-cyclic)
+    sync()
+    cuda_interp.LAUNCHES = 0
+    lcs = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)
+    ftle = {name: timed(name, lambda sel=sel, kw=kw: lcs(
+        u=U.isel(sel), v=V.isel(sel), verbose=False, **kw))
+        for name, sel, kw in runs}
+    launches = cuda_interp.LAUNCHES
+    # 3-hourly steps over the window, then the one local step
+    expected = (2 * (AREA_WINDOW - 1) + 1) * (1 + SETTLS_ORDER)
+    check(launches == expected, f"K1 launches in the two LCS runs "
+          f"{launches} == {expected}")
+    plain = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, kernel="torch",
+                device=dev)
+    for name, sel, kw in runs:
+        want = plain(u=U.isel(sel), v=V.isel(sel), verbose=False, **kw)
+        same = np.array_equal(ftle[name].data, want.data, equal_nan=True)
+        check(same, f"{name}: FTLE through K1 identical to the plain "
+              f"gather's on the card: {same}")
+    # 3. log scaling (example :104-106)
+    fl = ftle["ftle"].isel(time=0)
+    fl = fl.copy(data=np.log(fl.data) / 2)
+    fll = ftle["ftle_local"].isel(time=0)
+    fll = fll.copy(data=np.log(fll.data) * 4)
+    block = min(301, (min(fll.shape) // 2) * 2 + 1)
+
+    def diagnostics(device):
+        """Steps 4-5 of the example and find_area, each on ``device`` in the
+        default dtype; skeletonize, filter_ridges and find_area get the
+        card's masks, so that each stage is compared on equal inputs."""
+        out = {"threshold": timed(f"threshold_local[{device}]", lambda:
+                                  threshold_local(fll.data, block,
+                                                  offset=-0.8,
+                                                  device=device)
+                                  .cpu().numpy())}
+        out["ridges"] = timed(f"ridges[{device}]", lambda:
+                              find_ridges_spherical_hessian(
+                                  fl, sigma=RIDGE_SIGMA,
+                                  tolerance_threshold=RIDGE_TOL,
+                                  return_eigvectors=True, isglobal=False,
+                                  device=device))
+        return out
+
+    def downstream(device, ridges, eigvectors):
+        skel = timed(f"skeletonize[{device}]", lambda: skeletonize(
+            ridges.data, device=device))
+        kept = timed(f"filter_ridges[{device}]", lambda: filter_ridges(
+            skel, fl.data, *FILTER))
+        area = timed(f"find_area[{device}]", lambda: find_area(
+            fl, eigvectors, ridges.copy(data=kept), device=device))
+        return skel.cpu().numpy(), kept, area.data
+
+    card_out = diagnostics(dev)
+    card_down = downstream(dev, card_out["ridges"][0], card_out["ridges"][3])
+    torch.set_default_dtype(torch.float64)
+    try:
+        cpu_out = diagnostics("cpu")
+        cpu_down = downstream("cpu", card_out["ridges"][0],
+                              card_out["ridges"][3])
+    finally:
+        torch.set_default_dtype(torch.float32)
+    log("stages (ms): " + json.dumps({k: round(v, 3) for k, v in ms.items()})
+        + f" [{card}]")
+
+    # threshold_local: values, and the mask away from its threshold
+    thr, thr64 = card_out["threshold"], cpu_out["threshold"]
+    near = np.abs(fll.data - thr64) <= DIAG_REL * np.abs(thr64).max()
+    diff = (fll.data > thr) != (fll.data > thr64)
+    e = rel_err(thr, thr64)
+    check(e <= DIAG_REL and not (diff & ~near).any(),
+          f"threshold_local f32 vs f64: {e:.3e} (<= {DIAG_REL:g}); mask "
+          f"differs at {int(diff.sum())} of {int(near.sum())} points near "
+          f"the threshold, none elsewhere")
+    # ridges: eigen-quantities away from the tests' thresholds
+    ridges, eigmin, dt_prod, eigvectors, gradient, angle = card_out["ridges"]
+    r64, em64, dt64, ev64, g64, an64 = cpu_out["ridges"]
+    lam0, lam1 = hessian_eigenvalues(fl.data, lats, lons)
+    lam_scale = max(np.abs(lam0).max(), np.abs(lam1).max())
+    near = {
+        # eigmin's sign (the ridge test and the eigvector zeroing)
+        "sign": np.abs(em64.data) <= DIAG_REL * lam_scale,
+        # quirk Q7: eigmin picks the larger-|lambda| eigenvalue
+        "pick": np.abs(np.abs(lam0) - np.abs(lam1)) <= DIAG_REL * lam_scale,
+        # |dt_prod| <= tolerance
+        "tol": np.abs(np.abs(dt64.data) - RIDGE_TOL)
+        <= DIAG_REL * np.abs(dt64.data).max(),
+        # nearly equal eigenvalues: the eigvector direction is unstable
+        "degenerate": lam1 - lam0 <= DIAG_REL * lam_scale,
+        # ev[..., 1] near 0 on a kept eigvector: the angle's +-90 seam
+        "seam": (np.abs(ev64.data[1]) <= DIAG_REL) & (em64.data < 0),
+    }
+    for k, m in near.items():
+        log(f"  points within {DIAG_REL:g} of the {k} threshold: "
+            f"{int(m.sum())} of {m.size}")
+    steady = ~(near["sign"] | near["pick"] | near["degenerate"])
+    for name, got, want, keep in (
+            ("gradient", gradient.data, g64.data, None),
+            ("dt_prod", dt_prod.data, dt64.data, None),
+            ("eigmin", eigmin.data, em64.data, ~near["pick"]),
+            ("eigvectors", eigvectors.data, ev64.data, steady),
+            ("angle", angle.data, an64.data, steady & ~near["seam"])):
+        if keep is not None:
+            got, want = got[..., keep], want[..., keep]
+        e = rel_err(got, want)
+        check(e <= DIAG_REL, f"{name} f32 vs f64: {e:.3e} of max "
+              f"(<= {DIAG_REL:g})")
+    diff = ridges.data != r64.data
+    near_r = near["sign"] | near["pick"] | near["tol"]
+    check(not (diff & ~near_r).any(),
+          f"ridges mask: {int(ridges.data.sum())} ridge points; differs at "
+          f"{int(diff.sum())} of {int(near_r.sum())} points near a "
+          f"threshold, none elsewhere")
+    # skeletonize and filter_ridges on equal inputs: identical
+    (skel, kept, area), (skel64, kept64, area64) = card_down, cpu_down
+    check(np.array_equal(skel, skel64),
+          f"skeletonize card vs CPU: identical ({int(skel.sum())} points)")
+    check(np.array_equal(kept, kept64, equal_nan=True),
+          f"filter_ridges of the card's and the CPU's skeleton tensors: "
+          f"identical ({int(np.nansum(kept))} points kept)")
+    # find_area: float32 walk vs float64, away from its thresholds
+    ev = np.moveaxis(eigvectors.data, 0, -1).astype(np.float64)
+    unsure = area_uncertain(fl.data, ev, kept, lats, lons)
+    diff = area != area64
+    check(area.sum() > 0 and not (diff & ~unsure).any(),
+          f"find_area: {int(area.sum())} cells; f32 vs f64 differs at "
+          f"{int(diff.sum())} of {int(unsure.sum())} cells near a walk "
+          f"threshold, none elsewhere")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -787,6 +1198,11 @@ def main() -> int:
         log(f"profile engine={engine}: {json.dumps(prof)} [{card}]")
         check(prof["kernels"] > 0, f"profile engine={engine} sees device "
               f"kernels: {prof['kernels']}")
+
+    # -- 8. the LCS facade; 8b. the area-of-influence workflow ----------------
+    launches += phase_facade(dev, card, check, torch.cuda.synchronize, u64,
+                             v64, grid)
+    launches += phase_area(dev, card, check, torch.cuda.synchronize)
 
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")

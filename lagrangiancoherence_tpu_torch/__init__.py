@@ -2,13 +2,22 @@
 
 A second package beside the JAX one, which stays the reference.  Module
 names match the JAX package so that each counterpart is easy to find.  The
-port imports ``torch`` and never ``jax``; its one hand-written kernel, the
-CUDA spline gather of ``ops/cuda_interp.py``, is built with ``nvcc`` at
-first use on the GPU.
+port imports ``torch`` and never ``jax``.  Its hand-written CUDA kernels are
+built with ``nvcc`` at first use on the GPU: K1 ``spline_gather``
+(``ops/csrc/spline_gather.cu``, through ``ops/cuda_interp.py``) on the
+default gather route, and K2 ``tile_window_gather``, K3
+``sub_window_gather`` and K4 ``pole_window_gather``
+(``ops/csrc/window_gather.cu``, through ``ops/cuda_window.py``) on the
+``engine="blockspec"`` route.
 
 Public API (lazy-imported to keep ``import lagrangiancoherence_tpu_torch``
 light):
 
+- ``LCS``, ``parcel_propagation``, ``flowmap_gradient`` and ``latlonsel``
+  (api), each with ``device=``
+- ``Field`` and ``as_field`` (field)
+- ``find_ridges_spherical_hessian`` (models.ridges), ``filter_ridges``
+  (models.ridge_filter) and ``find_area`` (models.area)
 - ``ftle_pipeline`` and ``FTLEPipeline`` (models.pipeline)
 - ``parcel_propagation_core`` (models.settls)
 - ``Grid`` (grid)
@@ -18,6 +27,15 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 _EXPORTS = {
+    "LCS": "lagrangiancoherence_tpu_torch.api",
+    "parcel_propagation": "lagrangiancoherence_tpu_torch.api",
+    "flowmap_gradient": "lagrangiancoherence_tpu_torch.api",
+    "latlonsel": "lagrangiancoherence_tpu_torch.api",
+    "Field": "lagrangiancoherence_tpu_torch.field",
+    "as_field": "lagrangiancoherence_tpu_torch.field",
+    "find_ridges_spherical_hessian": "lagrangiancoherence_tpu_torch.models.ridges",
+    "filter_ridges": "lagrangiancoherence_tpu_torch.models.ridge_filter",
+    "find_area": "lagrangiancoherence_tpu_torch.models.area",
     "ftle_pipeline": "lagrangiancoherence_tpu_torch.models.pipeline",
     "FTLEPipeline": "lagrangiancoherence_tpu_torch.models.pipeline",
     "parcel_propagation_core": "lagrangiancoherence_tpu_torch.models.settls",

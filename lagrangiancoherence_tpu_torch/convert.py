@@ -4,8 +4,9 @@ This system has no learned weights: its state is the grid and the
 grid-derived tensors (the prefilter matrices, ``conv_x``, the initial mesh),
 plus the winds a run is given.  Everything crosses as numpy arrays, so this
 module needs neither package's internals: ``grid_from_jax`` is duck-typed
-on ``lats``, ``lons`` and ``cyclic_x``, and ``FTLEPipeline.load_numpy_state``
-takes the matrices by buffer name.
+on ``lats``, ``lons`` and ``cyclic_x``, ``field_from_jax`` on ``data``,
+``dims``, ``coords``, ``name`` and ``attrs``, and
+``FTLEPipeline.load_numpy_state`` takes the matrices by buffer name.
 """
 from __future__ import annotations
 
@@ -14,9 +15,19 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 import torch
 
+from .field import Field
 from .grid import Grid
 
-__all__ = ["grid_from_jax", "tensors_from_numpy"]
+__all__ = ["field_from_jax", "grid_from_jax", "tensors_from_numpy"]
+
+
+def field_from_jax(field) -> Field:
+    """This package's ``Field`` from a ``lagrangiancoherence_tpu.field.Field``
+    (or anything with the same attributes), as numpy copies of its data and
+    coordinates."""
+    return Field(data=np.array(field.data), dims=tuple(field.dims),
+                 coords={k: np.array(v) for k, v in field.coords.items()},
+                 name=field.name, attrs=dict(getattr(field, "attrs", {})))
 
 
 def grid_from_jax(grid) -> Grid:

@@ -46,6 +46,7 @@ from ..ops.interp import (_to_index, interp_at_parcels_multi, prefilter,
                           spline_filter_matrix)
 from ..ops.tiles import SORT_LADDER, TILE_C, TILE_R
 from ..ops.window_interp import windowed_interp_multi
+from ..utils.logging import logger
 
 __all__ = ["grid_state", "parcel_propagation_core", "resolve_engine",
            "resolve_kernel", "settls_scan"]
@@ -217,7 +218,7 @@ def _unsort_bands(arrs, perm, bands):
 def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
                 settls_order: int, interp_order: int, return_traj: bool,
                 kernel: str = "torch", engine: str = "auto",
-                rebin="sort"):
+                rebin="sort", progress: bool = False):
     """The SETTLS time loop over the parcel grid.
 
     ``u``/``v``: (T, ny, nx) winds; ``cu``/``cv``: their prefiltered
@@ -228,7 +229,10 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
     ``"dma-all"`` (K1's direct gather) or ``"blockspec"`` (the windowed
     gather); see ``resolve_engine``.  ``rebin`` applies to
     ``"blockspec"``: ``"sort"`` sort-bins the polar bands, False keeps the
-    grid layout.  Nothing in the loop waits for the device.
+    grid layout.  ``progress`` logs one ``Propagating time index`` line per
+    step from the host loop (the reference's per-step print,
+    LagrangianCoherence LCS/trajectory.py:81).  Nothing in the loop waits
+    for the device.
 
     Returns ``(px, py, overflow)`` — (T, ny, nx) trajectories including
     the initial positions when ``return_traj`` — where ``overflow`` is the
@@ -302,6 +306,8 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
     pole_geom = dict(order=order, nx=nx)
     traj_x, traj_y = [px0], [py0]
     for t in range(T - 1):
+        if progress:
+            logger.info("Propagating time index %d/%d", t + 1, T - 1)
         # JAX unrolls K steps per scan iteration when K divides the step
         # count and takes a lax.cond otherwise; both re-bin at t % K == 0
         if bands and t % SORT_K == 0:
@@ -356,7 +362,7 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
                             interp_order: int = 3, return_traj: bool = False,
                             kernel: str = "auto", engine: str = "auto",
                             rebin="sort", return_overflow: bool = False,
-                            device=None,
+                            progress: bool = False, device=None,
                             state: dict[str, torch.Tensor] | None = None):
     """Integrate parcel positions through ``T-1`` SETTLS steps.
 
@@ -369,7 +375,7 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
     grid : Grid (this package's, or any object with the same fields).
     kernel : ``"auto"``, ``"cuda"`` or ``"torch"`` (see ``resolve_kernel``).
     engine : ``"auto"``, ``"dma-all"`` or ``"blockspec"`` (see
-        ``resolve_engine``); ``rebin``: see ``settls_scan``.
+        ``resolve_engine``); ``rebin``, ``progress``: see ``settls_scan``.
     device : where to compute; default: ``u``'s device (the CPU for arrays).
     state : ``grid_state`` tensors on that device and dtype, as
         ``FTLEPipeline`` holds them; built from ``grid`` when omitted.
@@ -401,7 +407,8 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
     *pos, overflow = settls_scan(
         u, v, cu, cv, state["px0"], state["py0"], dt, state["conv_x"], grid,
         settls_order=settls_order, interp_order=interp_order,
-        return_traj=return_traj, kernel=kernel, engine=engine, rebin=rebin)
+        return_traj=return_traj, kernel=kernel, engine=engine, rebin=rebin,
+        progress=progress)
     if return_overflow:
         return tuple(pos) + (overflow,)
     return tuple(pos)

@@ -6,7 +6,10 @@
   module imports without ``nvcc``, its build raises without it, and the
   launch counter stays 0 on the CPU path;
 * ``chip_smoke.py`` fails without a CUDA device, and its scipy oracle (it
-  may not import the JAX package) agrees with the package's oracle.
+  may not import the JAX package) agrees with the package's oracle;
+* the facade and diagnostics modules import no ``jax``, ``pandas``, ``h5py``
+  or ``xarray`` (the card's machine has no pandas and no h5py), and the
+  package exports the JAX package's facade names.
 """
 import os
 import subprocess
@@ -55,6 +58,43 @@ print("BAD", bad)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+
+
+SLICE_MODULES = ("api", "cli", "field", "convert", "devices", "ops.sht",
+                 "ops.regrid", "ops.stencil", "ops.morphology", "ops.idw",
+                 "models.ridges", "models.area", "models.ridge_filter",
+                 "utils.io", "utils.logging")
+
+
+def test_slice_modules_import_no_jax_pandas_h5py():
+    mods = ", ".join(f"lagrangiancoherence_tpu_torch.{m}"
+                     for m in SLICE_MODULES)
+    code = f"""
+import sys
+import {mods}
+import lagrangiancoherence_tpu_torch as L
+for name in L.__all__:
+    getattr(L, name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "pandas", "h5py", "xarray",
+              "lagrangiancoherence_tpu"))
+print("BAD", bad)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_exports_cover_the_facade():
+    import lagrangiancoherence_tpu as J
+    import lagrangiancoherence_tpu_torch as L
+    facade = {"LCS", "parcel_propagation", "flowmap_gradient", "latlonsel",
+              "Field", "as_field", "find_ridges_spherical_hessian",
+              "find_area", "filter_ridges"}
+    assert facade <= set(L.__all__) and facade <= set(J.__all__)
+    for name in facade:
+        assert getattr(L, name).__module__.startswith(
+            "lagrangiancoherence_tpu_torch.")
 
 
 def test_cuda_kernel_refuses_cpu_tensors():
@@ -125,12 +165,17 @@ def test_chip_smoke_fails_without_cuda():
     assert "torch.cuda.is_available() is False" in proc.stderr
 
 
-def test_chip_smoke_oracle_matches_package_oracle():
+def _chip_smoke():
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
+    return chip_smoke
+
+
+def test_chip_smoke_oracle_matches_package_oracle():
+    chip_smoke = _chip_smoke()
     lats = np.linspace(-90.0, 90.0, 19)
     lons = np.linspace(-180.0, 170.0, 36)
     u, v = chip_smoke.bench_winds(lats, lons, 4)
@@ -139,3 +184,36 @@ def test_chip_smoke_oracle_matches_package_oracle():
     want = O.oracle_ftle(u, v, lats, lons, -6 * 3600.0, settls_order=2,
                          interp_order=3, cyclic_x=True)
     np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_chip_smoke_area_winds_match_the_example():
+    """Phase 8b's winds are the example's closed forms (it may not import
+    the example, which imports the JAX package) at 0.25 degrees."""
+    import runpy
+    example = runpy.run_path(str(REPO / "examples" / "area_of_influence.py"))
+    lats, lons, times, u, v = _chip_smoke().era5_box_winds()
+    assert (u.shape, np.diff(lats).max(), np.diff(lons).min()) == \
+        ((16, 221, 233), 0.25, 0.25)
+    data = example["synthetic_era5"](nt=16, ny=221, nx=233)
+    np.testing.assert_array_equal(data["viwve"].coords["latitude"], lats)
+    np.testing.assert_array_equal(data["viwve"].coords["time"], times)
+    np.testing.assert_allclose(u, (data["viwve"] / data["tcwv"]).data,
+                               rtol=1e-15)
+    np.testing.assert_allclose(v, (data["viwvn"] / data["tcwv"]).data,
+                               rtol=1e-15)
+
+
+def test_chip_smoke_area_uncertain_cells():
+    """The cells find_area may mark differently in float32: none for a walk
+    far from its thresholds, the bracketing cells for a walk that lands on
+    a midpoint between grid columns."""
+    cs = _chip_smoke()
+    lats = lons = np.linspace(-10.0, 10.0, 21)
+    ftle = np.full((21, 21), np.log(2.0))     # radius 1 deg
+    ridges = np.full((21, 21), np.nan)
+    ev = np.zeros((21, 21, 2))
+    ridges[10, 10], ev[10, 10] = 1.0, [0.0, 0.8]
+    assert not cs.area_uncertain(ftle, ev, ridges, lats, lons).any()
+    ev[10, 10] = [0.0, 0.5]          # x steps of 0.5: every other one on a
+    unsure = cs.area_uncertain(ftle, ev, ridges, lats, lons)   # midpoint
+    assert unsure.any() and unsure[10].any() and not unsure[:9].any()
