@@ -4,30 +4,38 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout (K1
-``spline_gather``; K2 ``tile_window_gather``, K3 ``sub_window_gather`` and K4
+It builds the port's CUDA kernels from the sources in the checkout (the
+fused SETTLS step ``settls_step``; K1 ``spline_gather``; K2
+``tile_window_gather``, K3 ``sub_window_gather`` and K4
 ``pole_window_gather``), holds each against its plain PyTorch version on the
-card, drives the flagship FTLE pipeline (1440x721 parcels, 33 time levels,
-SETTLS order 4, float32) through both gather routes — ``engine="auto"``
-(K1) and ``engine="blockspec"`` (K2-K4) — checks the float32 pipelines
-against a scipy oracle, times the kernels and the pipelines against the
-plain versions, and profiles one field of each route (device busy time,
-kernels per field, idle share).  Then it drives the user-facing paths
-through K1: phase 8 runs ``LCS(isglobal=True, truncation=20)`` (the CLI's
-defaults) on the flagship winds — regrid to the common 0.5-degree grid, T20
-truncation, SETTLS-4, the float64 FTLE; a first and a second call timed by
-stage — and phase 8b the area-of-influence
+card (the fused step bit for bit), drives the flagship FTLE pipeline
+(1440x721 parcels, 33 time levels, SETTLS order 4, float32) through both
+gather routes — ``engine="auto"`` (one ``settls_step`` launch per step) and
+``engine="blockspec"`` (K2-K4) — and through the per-group K1 loop that the
+fused step replaced, checks the float32 pipelines against a scipy oracle,
+times the kernels beside their bounds (the least time the card could take
+for the same work), their plain versions and, where one exists, one PyTorch
+call computing the same function, times the pipelines, and profiles one
+field of each route (device busy time, kernels per field, idle share).  Then
+it drives the user-facing paths through the fused step: phase 8 runs
+``LCS(isglobal=True, truncation=20)`` (the CLI's defaults) on the flagship
+winds — regrid to the common 0.5-degree grid, T20 truncation, SETTLS-4, the
+float64 FTLE; a first and a second call timed by stage — and phase 8b the
+area-of-influence
 workflow (LagrangianCoherence LCS/area_of_influence.py, as
 ``examples/area_of_influence.py`` runs it) at ERA5's 0.25 degrees: ``LCS``
 with a 3-hourly resample, ``threshold_local``, the Hessian ridges,
 ``skeletonize``, ``filter_ridges`` and ``find_area``, each held against the
 same call in float64 on the CPU.  Each phase prints its results; the line
 before the last is the kernel record ``{"kernels": [{"name", "route",
-"source", "replaces", "launches", "max_abs_err", "ms", "plain_ms"}]}``
-(times: medians of CUDA-event trials; K1's launches summed over phases 4, 8
-and 8b, each counted from 0) and the last line is
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as does
-a machine without a CUDA device or a directory without the package.
+"source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+"bound_ms", "bound_by", "library_ms"}]}`` (times: medians of CUDA-event
+trials; ``settls_step``'s launches summed over phases 4, 8 and 8b, K1's from
+the per-group loop of phase 4, K2-K4's from phase 4b, each counted from 0)
+and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
+exits non-zero, as does a machine without a CUDA device or a directory
+without the package.  ``--quick`` stops after phase 3c (build, and the
+kernels against their plain versions) and prints no result line.
 
 This script imports neither JAX nor the JAX package: the oracle below is a
 plain numpy/scipy statement of the reference semantics
@@ -57,6 +65,7 @@ REPS = 3
 TRIALS = 7               # CUDA-event trials per timed launch group
 KERNEL_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/spline_gather.cu"
 KERNEL_REPLACES = "lagrangiancoherence_tpu/ops/pallas_interp.py:793"
+STEP_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/settls_step.cu"
 WINDOW_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/window_gather.cu"
 _PALLAS = "lagrangiancoherence_tpu/ops/pallas_interp.py"
 # the window kernels by name and mode, and the Pallas kernel each replaces
@@ -68,6 +77,48 @@ WINDOW_KERNELS = {
     "pole_window_gather.list": f"{_PALLAS}:755",     # _pole_list_kernel
 }
 FORCED_POLE_LADDER = (8, 16, 288)   # slots escalate to levels 2 and 3
+# one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s
+# and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+TILE = 8 * 128           # parcels per window tile and per pole slot
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+def gather_ops(nf, order=ORDER):
+    """Operations of one wrap-mode spline gather of ``nf`` fields at one
+    parcel: the Q4 scaling (6), the two folds (10), the B-spline weights
+    (38 at order 3, 4 at order 1), then per tap the weight product and
+    ``nf`` multiply-adds."""
+    return 16 + {3: 38, 1: 4}[order] + (order + 1) ** 2 * (1 + 2 * nf)
+
+
+def bilinear_ops(nf):
+    """Operations of the order-1 'constant' bilinear at one parcel: the Q4
+    scaling (6), fractions and weights (8), four products and three sums
+    per field."""
+    return 14 + 7 * nf
+
+
+def step_ops(settls_order, order=ORDER):
+    """Operations of one fused SETTLS step at one parcel: the F=2 gather,
+    its update (6) and clamp (4), then per iteration an F=4 gather, its
+    update (10) and clamp (4)."""
+    return gather_ops(2, order) + 10 + settls_order * (gather_ops(4, order)
+                                                      + 14)
+
+
+def bound(nbytes, ops):
+    """(bound ms, what sets it, the arithmetic): the larger of the bytes
+    over HBM_BYTES_PER_S and the operations over F32_OPS_PER_S."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    by = "bytes" if t_mem >= t_ops else "operations"
+    return max(t_mem, t_ops), by, (f"{nbytes / 1e6:.2f} MB / 3.35 TB/s = "
+                                   f"{t_mem * 1e3:.2f} us; {ops / 1e9:.4f} "
+                                   f"Gop / 67 TFLOP/s = {t_ops * 1e3:.2f} us")
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +324,164 @@ def profile_field(run):
             "span_ms": (end - ops[0][0]) / 1e3 if ops else 0.0,
             "device_ops": len(ops), "kernels": kernels,
             "top": [(name[:60], round(ms, 3), n) for name, (ms, n) in top]}
+
+
+def same_values(got, want):
+    """(``torch.equal`` with equal NaN patterns, max |got - want| over the
+    pairs finite in both, index of the first differing element or None)."""
+    import torch
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    a, b = torch.where(nan_g, 0.0, got), torch.where(nan_w, 0.0, want)
+    if bool(torch.equal(nan_g, nan_w)) and bool(torch.equal(a, b)):
+        return True, 0.0, None
+    where = tuple(((a != b) | (nan_g != nan_w)).nonzero()[0].tolist())
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want).abs()[fin].max()) if fin.any() else float("inf")
+    return False, err, where
+
+
+# ---------------------------------------------------------------------------
+# The fused SETTLS step, and the per-group K1 loop it replaced
+# ---------------------------------------------------------------------------
+
+def step_kw(grid, settls_order=SETTLS_ORDER, order=ORDER):
+    return dict(settls_order=settls_order, order=order, x_min=grid.x_min,
+                x_max=grid.x_max, y_min=grid.y_min, y_max=grid.y_max,
+                cyclic_x=grid.cyclic_x)
+
+
+def k1_gather(fields, coeffs, px, py, **kw):
+    """K1 as ``settls_step_torch``'s gather: one launch per gather group."""
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp
+    return cuda_interp.cuda_interp_multi(fields, coeffs, px, py, **kw)[0]
+
+
+def k1_loop_field(u, v, grid, state, dt, stages=None):
+    """One field as the direct route ran it before the fused step:
+    prefilter, then per step ``settls_step_torch`` with K1 as its gather
+    (five launches and the torch updates), then gradient and norm.  With
+    ``stages``, the synchronised stage times go there (ms)."""
+    import torch
+    from lagrangiancoherence_tpu_torch.models.ftle import (flowmap_gradient,
+                                                           ftle_norm)
+    from lagrangiancoherence_tpu_torch.ops.cuda_settls import \
+        settls_step_torch
+    from lagrangiancoherence_tpu_torch.ops.interp import prefilter
+    T, ny, nx = u.shape
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        if stages is not None:
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter())
+            stages[name] = (clock[-1] - clock[-2]) * 1e3
+
+    mats = (state["prefilter_y"], state["prefilter_x"])
+    cu, cv = (prefilter(a, order=ORDER, matrices=mats) for a in (u, v))
+    lap("prefilter_ms")
+    W = torch.stack([u, v], dim=1).reshape(2 * T, ny, nx)
+    CW = torch.stack([cu, cv], dim=1).reshape(2 * T, ny, nx)
+    px, py = state["px0"], state["py0"]
+    for t in range(T - 1):
+        px, py = settls_step_torch(W, CW, px, py, state["conv_x"], dt, t,
+                                   gather=k1_gather, **step_kw(grid))
+    lap("settls_loop_ms")
+    norm = ftle_norm(flowmap_gradient(px, py, grid))
+    lap("gradient_norm_ms")
+    return norm
+
+
+def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold):
+    """Phase 3c: ``settls_step`` (every variant) against
+    ``settls_step_torch`` on the card, one flagship step per case, float32
+    and float64; then the fold-boundary grid, cyclic and not.  ``cases``:
+    (label, px, py numpy, step, order); ``fold``: (lats, lons, field).
+    Returns the largest max |kernel - plain| in float32 (0.0: identical)."""
+    import torch
+    from lagrangiancoherence_tpu_torch import Grid
+    from lagrangiancoherence_tpu_torch.models.settls import grid_state
+    from lagrangiancoherence_tpu_torch.ops.cuda_settls import (
+        VARIANTS, interleave, settls_step, settls_step_torch)
+    from lagrangiancoherence_tpu_torch.ops.interp import prefilter
+    log(f"== phase 3c: settls_step vs settls_step_torch on the card, bit "
+        f"for bit, variants {list(VARIANTS)} [{card}]")
+    probe = np.array([-540.5, 2.0 ** 27, -2.0 ** 27, -180.0, 179.999,
+                      -1e-30, 359.5, -359.5, 540.0, np.nan])
+    for dtype, npt in ((torch.float32, np.float32),
+                       (torch.float64, np.float64)):
+        a = probe.astype(npt)
+        got = torch.remainder(torch.tensor(a, device=dev), 180.0).cpu()
+        with np.errstate(invalid="ignore"):
+            m = np.fmod(a, npt(180.0))
+            want = np.where((m != 0) & (m < 0), m + npt(180.0), m)
+        check(np.array_equal(got.numpy(), want, equal_nan=True),
+              f"torch.remainder({dtype}) on the card is fmod with the sign "
+              f"fix-up: {got.tolist()}")
+
+    worst = {}
+
+    def compare(label, name, want, run):
+        """One check per case over every variant; a variant that differs
+        is named with its max |d| and where (x, y) first differ."""
+        bad = []
+        for variant in VARIANTS:
+            got = run(variant)
+            torch.cuda.synchronize()
+            res = [same_values(g, w) for g, w in zip(got, want)]
+            err = max(r[1] for r in res)
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not all(r[0] for r in res):
+                bad.append(f"{variant}: max|d|={err:.3e} at (x, y) "
+                           f"{[r[2] for r in res]}")
+        check(not bad, f"{name} {label}: end positions identical in "
+              f"{len(VARIANTS) - len(bad)} of {len(VARIANTS)} variants"
+              + "".join(f"; {b}" for b in bad))
+
+    def stacks(u, v, order, state):
+        T, ny, nx = u.shape
+        mats = (state["prefilter_y"], state["prefilter_x"])
+        cu, cv = (prefilter(a, order=order, matrices=mats) for a in (u, v))
+        return (torch.stack([u, v], dim=1).reshape(2 * T, ny, nx),
+                torch.stack([cu, cv], dim=1).reshape(2 * T, ny, nx),
+                interleave(cu, cv))
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        u, v = u32.to(dtype), v32.to(dtype)
+        dt = torch.full((), DT, dtype=dtype, device=dev)
+        for order in sorted({c[4] for c in cases}, reverse=True):
+            state = grid_state(grid, order, dtype=dtype, device=dev)
+            W, CW, CI = stacks(u, v, order, state)
+            for label, cx, cy, t, o in cases:
+                if o != order:
+                    continue
+                px = torch.tensor(cx, dtype=dtype, device=dev)
+                py = torch.tensor(cy, dtype=dtype, device=dev)
+                kw = step_kw(grid, order=order)
+                want = settls_step_torch(W, CW, px, py, state["conv_x"], dt,
+                                         t, **kw)
+                compare(label, name, want, lambda variant: settls_step(
+                    W, CI, px, py, state["conv_x"], dt, t, variant=variant,
+                    **kw))
+            del W, CW, CI
+        lats, lons, f = fold
+        fu = torch.tensor(f, dtype=dtype, device=dev)
+        uf = torch.stack([fu, 0.8 * fu])
+        vf = torch.stack([0.5 * fu, 0.3 * fu + 1.0])
+        for cyclic in (True, False):
+            g = Grid(lats=lats, lons=lons, cyclic_x=cyclic)
+            state = grid_state(g, ORDER, dtype=dtype, device=dev)
+            W, CW, CI = stacks(uf, vf, ORDER, state)
+            kw = step_kw(g)
+            px, py = state["px0"], state["py0"]
+            want = settls_step_torch(W, CW, px, py, state["conv_x"], dt, 0,
+                                     **kw)
+            compare(f"fold-boundary grid {len(lats)}x{len(lons)} from its "
+                    f"nodes, cyclic={cyclic}", name, want,
+                    lambda variant: settls_step(W, CI, px, py,
+                                                state["conv_x"], dt, 0,
+                                                variant=variant, **kw))
+    return worst["float32"]
 
 
 # ---------------------------------------------------------------------------
@@ -512,38 +721,39 @@ def area_uncertain(ftle, ev, ridges, lats, lons, max_steps=128):
 
 def phase_facade(dev, card, check, sync, u64, v64, grid):
     """Phase 8: ``LCS(isglobal=True)`` at the CLI's defaults on the flagship
-    winds, through K1.  Returns K1's launches in the facade's run."""
+    winds, through the fused step.  Returns its launches in the facade's
+    run."""
     import torch
     from lagrangiancoherence_tpu_torch import LCS, Field, parcel_propagation
     from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
                                                    COMMON_GRID_LONS)
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
     from lagrangiancoherence_tpu_torch.ops.regrid import \
         regrid_linear_nearest
     from lagrangiancoherence_tpu_torch.ops.sht import truncate
     ny, nx = grid.shape
     log(f"== phase 8: LCS(isglobal=True, truncation={TRUNCATION}) on the "
         f"flagship winds ({nx}x{ny}, T={NT}, SETTLS-{SETTLS_ORDER}) -> the "
-        f"common grid, through K1 [{card}]")
+        f"common grid, through settls_step [{card}]")
     times = np.datetime64("2020-01-01", "ns") \
         + np.arange(NT) * np.timedelta64(6, "h")
     coords = {"time": times, "latitude": grid.lats, "longitude": grid.lons}
     U = Field(u64, DIMS3, coords, name="u")
     V = Field(v64, DIMS3, coords, name="v")
-    expected = (NT - 1) * (1 + SETTLS_ORDER)
+    expected = NT - 1
     sync()
-    cuda_interp.LAUNCHES = 0
+    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
     t0 = time.perf_counter()
     with StageClock() as clock:
         out = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
             u=U, v=V, verbose=False, isglobal=True, truncation=TRUNCATION)
     wall = (time.perf_counter() - t0) * 1e3
-    launches = cuda_interp.LAUNCHES
+    launches, k1 = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
     log("facade stages, first call (ms): " + json.dumps(
         {k: round(v, 3) for k, v in clock.ms.items()})
         + f", wall {wall:.3f} ms [{card}]")
-    check(launches == expected, f"K1 launches in the facade {launches} == "
-          f"{expected}")
+    check(launches == expected and k1 == 0, f"settls_step launches in the "
+          f"facade {launches} == {expected}, K1 launches {k1} == 0")
     inner = out.data[0, 5:-5]
     check(out.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
           and bool(np.isfinite(inner).all()),
@@ -569,8 +779,9 @@ def phase_facade(dev, card, check, sync, u64, v64, grid):
               f"of max)")
         truncated.append(trc)
 
-    # the same truncated winds: K1 and the plain gather give identical
-    # departure points (K1 is bit-identical to its plain version)
+    # the same truncated winds: the fused step and the plain step give
+    # identical departure points (the kernel is bit-identical to its plain
+    # version)
     ccoords = {"time": times, "latitude": COMMON_GRID_LATS,
                "longitude": COMMON_GRID_LONS}
     Ut, Vt = (Field(a, DIMS3, ccoords) for a in truncated)
@@ -600,15 +811,15 @@ def phase_facade(dev, card, check, sync, u64, v64, grid):
 def phase_area(dev, card, check, sync):
     """Phase 8b: the area-of-influence workflow of
     examples/area_of_influence.py:84-149 at ERA5 0.25 degrees over the
-    example's box, through K1, then ``find_area``.  The diagnostics run on
-    the card in the default dtype (float32) and are held against the same
-    calls on the CPU in float64.  Returns K1's launches in the two LCS
-    runs."""
+    example's box, through the fused step, then ``find_area``.  The
+    diagnostics run on the card in the default dtype (float32) and are held
+    against the same calls on the CPU in float64.  Returns the fused step's
+    launches in the two LCS runs."""
     import torch
     from lagrangiancoherence_tpu_torch import (LCS, Field, filter_ridges,
                                               find_area,
                                               find_ridges_spherical_hessian)
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
     from lagrangiancoherence_tpu_torch.ops.morphology import (skeletonize,
                                                               threshold_local)
     lats, lons, times, u, v = era5_box_winds()
@@ -633,23 +844,27 @@ def phase_area(dev, card, check, sync):
 
     # 2. the windowed FTLE and the two-level "local" FTLE (non-cyclic)
     sync()
-    cuda_interp.LAUNCHES = 0
+    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
     lcs = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)
-    ftle = {name: timed(name, lambda sel=sel, kw=kw: lcs(
-        u=U.isel(sel), v=V.isel(sel), verbose=False, **kw))
-        for name, sel, kw in runs}
-    launches = cuda_interp.LAUNCHES
+    ftle = {}
+    for name, sel, kw in runs:
+        with StageClock() as clock:
+            ftle[name] = timed(name, lambda sel=sel, kw=kw: lcs(
+                u=U.isel(sel), v=V.isel(sel), verbose=False, **kw))
+        log(f"{name} stages (ms): " + json.dumps(
+            {k: round(v, 3) for k, v in clock.ms.items()}) + f" [{card}]")
+    launches, k1 = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
     # 3-hourly steps over the window, then the one local step
-    expected = (2 * (AREA_WINDOW - 1) + 1) * (1 + SETTLS_ORDER)
-    check(launches == expected, f"K1 launches in the two LCS runs "
-          f"{launches} == {expected}")
+    expected = 2 * (AREA_WINDOW - 1) + 1
+    check(launches == expected and k1 == 0, f"settls_step launches in the "
+          f"two LCS runs {launches} == {expected}, K1 launches {k1} == 0")
     plain = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, kernel="torch",
                 device=dev)
     for name, sel, kw in runs:
         want = plain(u=U.isel(sel), v=V.isel(sel), verbose=False, **kw)
         same = np.array_equal(ftle[name].data, want.data, equal_nan=True)
-        check(same, f"{name}: FTLE through K1 identical to the plain "
-              f"gather's on the card: {same}")
+        check(same, f"{name}: FTLE through the fused step identical to the "
+              f"plain step's on the card: {same}")
     # 3. log scaling (example :104-106)
     fl = ftle["ftle"].isel(time=0)
     fl = fl.copy(data=np.log(fl.data) / 2)
@@ -781,7 +996,7 @@ def main() -> int:
     from lagrangiancoherence_tpu_torch.models.settls import (
         _sort_bands, _sort_bin_bands, parcel_propagation_core)
     from lagrangiancoherence_tpu_torch.ops import (_build, cuda_interp,
-                                                   cuda_window)
+                                                   cuda_settls, cuda_window)
     from lagrangiancoherence_tpu_torch.ops.interp import (
         interp_at_parcels_multi, prefilter)
     from lagrangiancoherence_tpu_torch.ops.tiles import (DEFAULT_LADDER,
@@ -812,13 +1027,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # -- 2. build ------------------------------------------------------------
-    log(f"== phase 2: build K1-K4 (one nvcc per source, in parallel) "
-        f"[{card}]")
+    log(f"== phase 2: build settls_step and K1-K4 (one nvcc per source, in "
+        f"parallel) [{card}]")
     lib_path, build_s, build_log = _build.build()
     _build.load_library()
     log(f"built {lib_path.name} in {build_s:.2f} s")
     for line in build_log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Compiling entry function" in line:
+            # the kernel's name and template arguments, still mangled
+            name = line.split("'")[1]
+            log(f"  ptxas: {name[name.find('_cu_') + 4:]}")
+        elif "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     # -- 3. K1 against the plain version --------------------------------------
@@ -917,6 +1136,24 @@ def main() -> int:
           f"{err:.3e}, NaN pattern equal={same_nan}, pole rows 0="
           f"{poles_zero}, spline-row NaN={nan_rows}")
 
+    # -- 3c. the fused step against its plain version, bit for bit -----------
+    rng = np.random.RandomState(11)
+    pxc = rng.uniform(-540.0, 540.0, (ny, nx)).astype(np.float32)
+    pyc = rng.uniform(-100.0, 100.0, (ny, nx)).astype(np.float32)
+    pxc[:, :4] = [-540.0, 540.0, -180.0, 180.0]
+    step_err = phase_step_parity(
+        dev, card, check, grid, u32, v32,
+        [("flagship t=0", pxn, pyn, 0, ORDER),
+         (f"flagship t={NT - 2}", pxn, pyn, NT - 2, ORDER),
+         ("pole rows at +-2**27 deg, NaN positions", pxe, pye, 0, ORDER),
+         ("longitudes across +-540 deg, latitudes past the poles", pxc, pyc,
+          0, ORDER),
+         ("flagship order 1", pxn, pyn, 0, 1)],
+        (fl_lats, fl_lons, fu))
+    if "--quick" in sys.argv[1:]:
+        log(f"chip_smoke --quick: {len(failures)} check(s) failed")
+        return 1 if failures else 0
+
     # -- 3b. K2, K3, K4 against their plain versions --------------------------
     log(f"== phase 3b: K2/K3/K4 vs plain on the card (flagship grid) "
         f"[{card}]")
@@ -983,11 +1220,15 @@ def main() -> int:
         del Wd, CWd
 
     # -- 4. main path ---------------------------------------------------------
-    log("== phase 4: flagship ftle_pipeline through K1 "
+    log("== phase 4: flagship ftle_pipeline through settls_step "
         f"({nx}x{ny}, T={NT}, settls_order={SETTLS_ORDER}, f32) [{card}]")
-    expected = (NT - 1) * (1 + SETTLS_ORDER)
+    from lagrangiancoherence_tpu_torch.models.settls import (grid_state,
+                                                             settls_scan)
+    state = grid_state(grid, ORDER, dtype=torch.float32, device=dev)
+    dt = torch.full((), DT, dtype=torch.float32, device=dev)
+    expected = NT - 1
     torch.cuda.synchronize()
-    cuda_interp.LAUNCHES = 0
+    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
     t0 = time.perf_counter()
     norm, overflow = ftle_pipeline(u32, v32, DT, grid,
                                    settls_order=SETTLS_ORDER,
@@ -995,20 +1236,34 @@ def main() -> int:
                                    return_overflow=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = cuda_interp.LAUNCHES
+    launches, k1_on_main = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
     finite = bool(torch.isfinite(norm[2:-2]).all())
     log(f"first call {first_s:.3f} s; FTLE norm range "
         f"[{float(norm[2:-2].min()):.4g}, {float(norm[2:-2].max()):.4g}]")
-    check(launches == expected, f"K1 launches {launches} == {expected}")
+    check(launches == expected and k1_on_main == 0,
+          f"settls_step launches {launches} == {expected}, K1 launches "
+          f"{k1_on_main} == 0")
     check(int(overflow) == 0, f"overflow {int(overflow)} == 0")
     check(norm.shape == (ny, nx) and finite,
           f"shape {tuple(norm.shape)}, rows [2:-2] finite={finite}")
+    # the per-group K1 loop that the fused step replaced, in the same call
+    torch.cuda.synchronize()
+    cuda_interp.LAUNCHES = 0
+    norm_k1 = k1_loop_field(u32, v32, grid, state, dt)
+    torch.cuda.synchronize()
+    k1_launches = cuda_interp.LAUNCHES
+    k1_expected = (NT - 1) * (1 + SETTLS_ORDER)
+    same, dnorm, where = same_values(norm, norm_k1)
+    check(k1_launches == k1_expected and same,
+          f"per-group K1 loop: {k1_launches} K1 launches (== "
+          f"{k1_expected}); its FTLE identical to the fused step's={same}"
+          + ("" if same else f", max|d|={dnorm:.3e} at {where}"))
 
     # -- 4b. the blockspec route ----------------------------------------------
     log("== phase 4b: flagship ftle_pipeline(engine='blockspec') through "
         f"K2/K3/K4 [{card}]")
     torch.cuda.synchronize()
-    cuda_interp.LAUNCHES = 0
+    cuda_interp.LAUNCHES = cuda_settls.LAUNCHES = 0
     cuda_window.reset_launches()
     t0 = time.perf_counter()
     norm_b, overflow_b = ftle_pipeline(u32, v32, DT, grid,
@@ -1019,42 +1274,38 @@ def main() -> int:
     torch.cuda.synchronize()
     first_b = time.perf_counter() - t0
     window_launch = dict(cuda_window.LAUNCHES)
-    k1_on_b = cuda_interp.LAUNCHES
+    other_on_b = cuda_interp.LAUNCHES + cuda_settls.LAUNCHES
     log(f"first call {first_b:.3f} s; launches {json.dumps(window_launch)}, "
-        f"K1 {k1_on_b}")
+        f"K1 and settls_step {other_on_b}")
     check(int(overflow_b) == 0, f"blockspec overflow 0x{int(overflow_b):x} "
           f"== 0")
-    check(all(n > 0 for n in window_launch.values()) and k1_on_b == 0,
-          f"K2/K3/K4 launched on the blockspec route, K1 {k1_on_b} == 0")
-    dnorm = float((norm_b - norm).abs().nan_to_num(0.0).max())
-    same = bool(torch.equal(torch.isnan(norm_b), torch.isnan(norm)))
-    check(same and dnorm == 0.0,
-          f"blockspec FTLE vs K1 FTLE: max|d|={dnorm:.3e} (identical "
-          f"expected), NaN pattern equal={same}")
-    # the SETTLS loop of the blockspec route never waits for the card
-    from lagrangiancoherence_tpu_torch.models.settls import (grid_state,
-                                                             settls_scan)
-    state = grid_state(grid, ORDER, dtype=torch.float32, device=dev)
+    check(all(n > 0 for n in window_launch.values()) and other_on_b == 0,
+          f"K2/K3/K4 launched on the blockspec route, K1 and settls_step "
+          f"{other_on_b} == 0")
+    same, dnorm, _ = same_values(norm_b, norm)
+    check(same, f"blockspec FTLE vs the fused step's FTLE: identical={same}, "
+          f"max|d|={dnorm:.3e}")
+    # neither SETTLS loop waits for the card
     mats = (state["prefilter_y"], state["prefilter_x"])
     cu = prefilter(u32, order=ORDER, matrices=mats)
     cv = prefilter(v32, order=ORDER, matrices=mats)
-    dt = torch.full((), DT, dtype=torch.float32, device=dev)
     scan_args = (u32, v32, cu, cv, state["px0"], state["py0"], dt,
                  state["conv_x"], grid)
     scan_kw = dict(settls_order=SETTLS_ORDER, interp_order=ORDER,
-                   return_traj=False, kernel="cuda", engine="blockspec")
-    torch.cuda.synchronize()
-    sync_error = None
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        settls_scan(*scan_args, **scan_kw)
-    except RuntimeError as e:
-        sync_error = str(e).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    check(sync_error is None, f"blockspec SETTLS loop under "
-          f"set_sync_debug_mode('error'): no host sync ({sync_error})")
+                   return_traj=False, kernel="cuda")
+    for engine in ("auto", "blockspec"):
+        torch.cuda.synchronize()
+        sync_error = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            settls_scan(*scan_args, engine=engine, **scan_kw)
+        except RuntimeError as e:
+            sync_error = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        check(sync_error is None, f"engine={engine!r} SETTLS loop under "
+              f"set_sync_debug_mode('error'): no host sync ({sync_error})")
 
     # -- 5. end-to-end accuracy ------------------------------------------------
     log(f"== phase 5: 1-degree global config vs the scipy oracle [{card}]")
@@ -1062,37 +1313,33 @@ def main() -> int:
     lons1 = np.linspace(-180.0, 179.0, 360)
     grid1 = Grid(lats=lats1, lons=lons1, cyclic_x=True)
     u1, v1 = bench_winds(lats1, lons1, 9)
-    got1 = ftle_pipeline(torch.tensor(u1, dtype=torch.float32, device=dev),
-                         torch.tensor(v1, dtype=torch.float32, device=dev),
-                         DT, grid1, settls_order=2, interp_order=ORDER,
-                         kernel="cuda").cpu().numpy()
     want1 = oracle_ftle(u1, v1, lats1, lons1, DT, settls_order=2)
-    mask = np.isfinite(want1) & np.isfinite(got1) & (want1 > 0) & (got1 > 0)
-    mask[:4] = mask[-4:] = False     # the order-1/'constant' pole band
-    p99 = float(np.percentile(np.abs(np.log(got1[mask])
-                                     - np.log(want1[mask])), 99))
-    check(p99 <= LOG_FTLE_P99_BOUND,
-          f"f32 K1 pipeline p99 |dlog-FTLE| vs oracle = {p99:.3e} "
-          f"(<= {LOG_FTLE_P99_BOUND:g})")
-    got1b = ftle_pipeline(torch.tensor(u1, dtype=torch.float32, device=dev),
-                          torch.tensor(v1, dtype=torch.float32, device=dev),
-                          DT, grid1, settls_order=2, interp_order=ORDER,
-                          kernel="cuda", engine="blockspec").cpu().numpy()
-    p99b = float(np.percentile(np.abs(np.log(got1b[mask])
-                                      - np.log(want1[mask])), 99))
-    check(p99b <= LOG_FTLE_P99_BOUND,
-          f"f32 blockspec pipeline p99 |dlog-FTLE| vs oracle = {p99b:.3e} "
-          f"(<= {LOG_FTLE_P99_BOUND:g})")
+    for engine in ("auto", "blockspec"):
+        got1 = ftle_pipeline(
+            torch.tensor(u1, dtype=torch.float32, device=dev),
+            torch.tensor(v1, dtype=torch.float32, device=dev), DT, grid1,
+            settls_order=2, interp_order=ORDER, kernel="cuda",
+            engine=engine).cpu().numpy()
+        if engine == "auto":
+            mask = (np.isfinite(want1) & np.isfinite(got1) & (want1 > 0)
+                    & (got1 > 0))
+            mask[:4] = mask[-4:] = False   # the order-1/'constant' pole band
+        p99 = float(np.percentile(np.abs(np.log(got1[mask])
+                                         - np.log(want1[mask])), 99))
+        check(p99 <= LOG_FTLE_P99_BOUND,
+              f"f32 engine={engine!r} pipeline p99 |dlog-FTLE| vs oracle = "
+              f"{p99:.3e} (<= {LOG_FTLE_P99_BOUND:g})")
     u1d = torch.tensor(u1, device=dev)
     v1d = torch.tensor(v1, device=dev)
     pos = {k: parcel_propagation_core(u1d, v1d, DT, grid1, settls_order=2,
                                       interp_order=ORDER, kernel=k)
            for k in ("cuda", "torch")}
+    same = all(same_values(a, b)[0] for a, b in zip(pos["cuda"], pos["torch"]))
     dpos = max(float((a - b).abs().max())
                for a, b in zip(pos["cuda"], pos["torch"]))
     check(dpos <= POSITION_F64_ATOL,
-          f"f64 K1 vs plain departure points: max diff {dpos:.3e} deg "
-          f"(<= {POSITION_F64_ATOL:g})")
+          f"f64 fused step vs plain departure points: max diff {dpos:.3e} "
+          f"deg (<= {POSITION_F64_ATOL:g}), identical={same}")
 
     # -- 6. times --------------------------------------------------------------
     log(f"== phase 6: times on {card}")
@@ -1109,51 +1356,140 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / REPS
 
+    def k1_loop_s():
+        k1_loop_field(u32, v32, grid, state, dt)              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            k1_loop_field(u32, v32, grid, state, dt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / REPS
+
+    # the fused route and the K1 loop in turns: fused, K1, K1, fused
     torch.cuda.reset_peak_memory_stats()
-    k1_s = pipeline_s("cuda")
+    fused_s = [pipeline_s("cuda")]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    k1_s = [k1_loop_s(), k1_loop_s()]
+    fused_s.append(pipeline_s("cuda"))
     plain_s = pipeline_s("torch")
     torch.cuda.reset_peak_memory_stats()
     bs_s = pipeline_s("cuda", "blockspec")
     peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"flagship fields/s: K1 {1.0 / k1_s:.4f} ({k1_s * 1e3:.1f} ms/field, "
-        f"peak {peak_gb:.2f} GiB), plain {1.0 / plain_s:.4f} "
-        f"({plain_s * 1e3:.1f} ms/field), blockspec {1.0 / bs_s:.4f} "
-        f"({bs_s * 1e3:.1f} ms/field, peak {peak_b:.2f} GiB) [{card}]")
+    log("flagship ms/field (fields/s): fused step "
+        + ", ".join(f"{t * 1e3:.3f} ({1.0 / t:.4f})" for t in fused_s)
+        + f" (peak {peak_gb:.2f} GiB); per-group K1 loop "
+        + ", ".join(f"{t * 1e3:.3f} ({1.0 / t:.4f})" for t in k1_s)
+        + f"; plain {plain_s * 1e3:.3f} ({1.0 / plain_s:.4f}); blockspec "
+        f"{bs_s * 1e3:.3f} ({1.0 / bs_s:.4f}, peak {peak_b:.2f} GiB) "
+        f"[{card}]")
+    fused_s, k1_s = float(np.mean(fused_s)), float(np.mean(k1_s))
 
-    # F=4 gather groups at the flagship positions, as each route lays them
-    # out: K1 on the grid layout, K2-K4 sort-binned with the sort ladder
+    # one SETTLS step at the flagship positions (t = 0): the fused step in
+    # each variant, its plain version, and the per-group K1 loop's step
+    from lagrangiancoherence_tpu_torch.ops.cuda_settls import (
+        DEFAULT_VARIANT, VARIANTS, interleave, settls_step_torch)
     px = torch.tensor(pxn, device=dev)
     py = torch.tensor(pyn, device=dev)
-    group_times = {"spline_gather": (
-        event_ms(lambda: cuda_interp.cuda_interp_multi(
-            W, CW, px, py, f0=0, nf=4, order=ORDER, **bounds), 50),
-        event_ms(lambda: interp_at_parcels_multi(
-            W.reshape(-1, ny, nx)[:4], CW.reshape(-1, ny, nx)[:4], px, py,
-            order=ORDER, **bounds), 5))}
-    runs, _ = window_launches(W, CW, *sort_binned(px, py), f0=0, nf=4, wy=32,
-                              bounds=bounds, ladder=SORT_LADDER)
+    CI = interleave(CW[:, 0], CW[:, 1])
+    ox, oy = torch.empty_like(px), torch.empty_like(py)
+    skw = step_kw(grid)
+    times = {f"settls_step.{v}": event_ms(
+        lambda v=v: cuda_settls.settls_step(W, CI, px, py, state["conv_x"],
+                                            dt, 0, out=(ox, oy), variant=v,
+                                            **skw), 50)
+        for v in VARIANTS}
+    times["settls_step"] = times[f"settls_step.{DEFAULT_VARIANT}"]
+    plain_times = {"settls_step": event_ms(lambda: settls_step_torch(
+        W, CW, px, py, state["conv_x"], dt, 0, **skw), 3)}
+    times["K1 loop step"] = event_ms(lambda: settls_step_torch(
+        W, CW, px, py, state["conv_x"], dt, 0, gather=k1_gather, **skw), 20)
+    del CI
+    # F=4 gather groups at the flagship positions, as each route lays them
+    # out: K1 on the grid layout, K2-K4 sort-binned with the sort ladder
+    times["spline_gather"] = event_ms(lambda: cuda_interp.cuda_interp_multi(
+        W, CW, px, py, f0=0, nf=4, order=ORDER, **bounds), 50)
+    plain_times["spline_gather"] = event_ms(lambda: interp_at_parcels_multi(
+        W.reshape(-1, ny, nx)[:4], CW.reshape(-1, ny, nx)[:4], px, py,
+        order=ORDER, **bounds), 5)
+    runs, wcounts = window_launches(W, CW, *sort_binned(px, py), f0=0, nf=4,
+                                    wy=32, bounds=bounds, ladder=SORT_LADDER)
     window_ms = time_launches(runs, torch.float32, dev, reps=50,
                               plain_reps=5)
     for kname in WINDOW_KERNELS:
-        group_times[kname] = (window_ms[kname, "cuda"],
-                              window_ms[kname, "plain"])
-    ms, plain_ms, ratio = {}, {}, {}
-    for kname, (kt, pt) in group_times.items():
-        (ms[kname], klo, khi), (plain_ms[kname], plo, phi) = \
-            spread(kt), spread(pt)
-        ratio[kname] = (ms[kname] / plain_ms[kname], klo / phi, khi / plo)
-        log(f"F=4 gather group at the flagship: {kname} {ms[kname]:.4f} ms "
-            f"[{klo:.4f}, {khi:.4f}], plain {plain_ms[kname]:.4f} ms "
-            f"[{plo:.4f}, {phi:.4f}] (median [min, max] of {TRIALS} "
-            f"trials) [{card}]")
-    rank = sorted(ratio, key=lambda k: -ratio[k][0])
-    log("kernel/plain, slowest first: " + ", ".join(
-        f"{k} {ratio[k][0]:.4f} [{ratio[k][1]:.4f}, {ratio[k][2]:.4f}]"
-        for k in rank) + f"; first apart from second: "
-        f"{ratio[rank[0]][1] > ratio[rank[1]][2]} [{card}]")
+        times[kname] = window_ms[kname, "cuda"]
+        plain_times[kname] = window_ms[kname, "plain"]
 
-    # stage breakdown of one K1 field (host clock around synchronised stages)
+    # bounds: each input byte read once and each output byte written once,
+    # and the operations, for one step (settls_step) or one F=4 group at
+    # the layout each route gives it; window kernels count the parcels their
+    # launches are routed at, and the coefficient bytes in proportion
+    n_all, plane = ny * nx, 4 * ny * nx
+    pole_p = 2 * ORDER * nx
+    flags_b = {}
+    for name, _, n_flags, _ in runs:
+        flags_b[name] = flags_b.get(name, 0) + 4 * n_flags
+    routed = {"tile_window_gather.dense": wcounts["tierA"] * TILE,
+              "tile_window_gather.list": sum(wcounts["tiers"]) * TILE,
+              "sub_window_gather": wcounts["sub"] * TILE,
+              "pole_window_gather.dense": pole_p,
+              "pole_window_gather.list": min(
+                  sum(wcounts["pole_levels"][1:]) * TILE, pole_p)}
+    work = {"settls_step": (16 * n_all + 4 * plane + 16 * pole_p + 4 * ny,
+                            n_all * step_ops(SETTLS_ORDER)),
+            "spline_gather": (8 * n_all + 4 * plane + 16 * n_all,
+                              n_all * gather_ops(4))}
+    for kname, n in routed.items():
+        ops = n * (bilinear_ops(4) if kname.startswith("pole")
+                   else gather_ops(4))
+        work[kname] = (24 * n + 4 * plane * n / n_all + flags_b[kname], ops)
+    bnd = {k: bound(*w) for k, w in work.items()}
+    log("  K1 F=2 group (not timed): " + bound(
+        16 * n_all + 2 * plane, n_all * gather_ops(2))[2])
+
+    # one PyTorch call computing K4's function: grid_sample's bilinear with
+    # zero padding on the raw fields, at pole-home parcels (it differs from
+    # the order-1 'constant' mode only within one cell outside the field)
+    pole_x = torch.cat([px[:ORDER], px[-ORDER:]]).reshape(-1)
+    pole_y = torch.cat([py[:ORDER], py[-ORDER:]]).reshape(-1)
+    raw4 = W.reshape(-1, ny, nx)[:4][None]
+    library = {}
+    for kname in ("pole_window_gather.dense", "pole_window_gather.list"):
+        n = max(routed[kname], 1)
+        xs = nx * (pole_x[:n] - grid.x_min) / (grid.x_max - grid.x_min)
+        ys = ny * (pole_y[:n] - grid.y_min) / (grid.y_max - grid.y_min)
+        g = torch.stack([2.0 * xs / (nx - 1) - 1.0, 2.0 * ys / (ny - 1) - 1.0],
+                        dim=-1).reshape(1, 1, n, 2)
+        library[kname] = spread(event_ms(
+            lambda g=g: torch.nn.functional.grid_sample(
+                raw4, g, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 50))[0]
+
+    per_field = {"settls_step": NT - 1, "spline_gather": k1_launches,
+                 **window_launch}
+    ms, plain_ms = {}, {}
+    for kname in ["settls_step"] + [f"settls_step.{v}" for v in VARIANTS] \
+            + ["K1 loop step", "spline_gather", *WINDOW_KERNELS]:
+        ms[kname], lo, hi = spread(times[kname])
+        line = (f"{kname}: {ms[kname]:.4f} ms [{lo:.4f}, {hi:.4f}] (median "
+                f"[min, max] of {TRIALS} trials)")
+        if kname in plain_times:
+            plain_ms[kname], plo, phi = spread(plain_times[kname])
+            line += f", plain {plain_ms[kname]:.4f} ms [{plo:.4f}, {phi:.4f}]"
+        bkey = kname.split(".")[0] if kname.startswith("settls") else kname
+        if bkey in bnd:
+            b, by, arith = bnd[bkey]
+            line += (f"; bound {b:.5f} ms by {by} ({arith}); kernel/bound "
+                     f"{ms[kname] / b:.2f}; launches per field "
+                     f"{per_field[bkey]}; library "
+                     + (f"{library[kname]:.4f} ms" if kname in library
+                        else "none"))
+        log(f"  {line} [{card}]")
+    log("kernel/bound, farthest first: " + ", ".join(
+        f"{k} {ms[k] / bnd[k][0]:.2f}"
+        for k in sorted(bnd, key=lambda k: -ms[k] / bnd[k][0])) + f" [{card}]")
+
+    # stage breakdown of one field per route (host clock around
+    # synchronised stages)
     from lagrangiancoherence_tpu_torch.models.ftle import (flowmap_gradient,
                                                            ftle_norm)
     stages = {}
@@ -1164,23 +1500,27 @@ def main() -> int:
     torch.cuda.synchronize()
     stages["prefilter_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    dt = torch.full((), DT, dtype=torch.float32, device=dev)
     spx, spy, _ = settls_scan(u32, v32, cu, cv, state["px0"], state["py0"],
-                              dt, state["conv_x"], grid,
-                              settls_order=SETTLS_ORDER, interp_order=ORDER,
-                              return_traj=False, kernel="cuda")
+                              dt, state["conv_x"], grid, engine="auto",
+                              **scan_kw)
     torch.cuda.synchronize()
     stages["settls_scan_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     ftle_norm(flowmap_gradient(spx, spy, grid))
     torch.cuda.synchronize()
     stages["gradient_norm_ms"] = (time.perf_counter() - t0) * 1e3
-    log("stages (K1 field): " + json.dumps(
+    log("stages (fused-step field; the scan includes the interleave): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()})
+        + f" [{card}]")
+    stages = {}
+    torch.cuda.synchronize()
+    k1_loop_field(u32, v32, grid, state, dt, stages=stages)
+    log("stages (per-group K1 loop field): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}) + f" [{card}]")
     torch.cuda.synchronize()
     cuda_window.reset_launches()
     t0 = time.perf_counter()
-    settls_scan(*scan_args, **scan_kw)
+    settls_scan(*scan_args, engine="blockspec", **scan_kw)
     torch.cuda.synchronize()
     log(f"stages (blockspec field): settls_scan_ms "
         f"{(time.perf_counter() - t0) * 1e3:.3f}, window launches "
@@ -1189,15 +1529,21 @@ def main() -> int:
     # -- 7. device profile ------------------------------------------------------
     log(f"== phase 7: torch.profiler over one flagship field per route "
         f"[{card}]")
-    for engine, wall_s in (("auto", k1_s), ("blockspec", bs_s)):
-        prof = profile_field(lambda engine=engine: ftle_pipeline(
+    routes = {"fused step": (fused_s, lambda: ftle_pipeline(
+        u32, v32, DT, grid, settls_order=SETTLS_ORDER, interp_order=ORDER,
+        kernel="cuda")),
+        "per-group K1 loop": (k1_s, lambda: k1_loop_field(u32, v32, grid,
+                                                          state, dt)),
+        "blockspec": (bs_s, lambda: ftle_pipeline(
             u32, v32, DT, grid, settls_order=SETTLS_ORDER,
-            interp_order=ORDER, kernel="cuda", engine=engine))
+            interp_order=ORDER, kernel="cuda", engine="blockspec"))}
+    for route, (wall_s, run) in routes.items():
+        prof = profile_field(run)
         prof["wall_ms"] = wall_s * 1e3
         prof["idle_share"] = 1.0 - prof["busy_ms"] / prof["wall_ms"]
-        log(f"profile engine={engine}: {json.dumps(prof)} [{card}]")
-        check(prof["kernels"] > 0, f"profile engine={engine} sees device "
-              f"kernels: {prof['kernels']}")
+        log(f"profile {route}: {json.dumps(prof)} [{card}]")
+        check(prof["kernels"] > 0, f"profile {route} sees device kernels: "
+              f"{prof['kernels']}")
 
     # -- 8. the LCS facade; 8b. the area-of-influence workflow ----------------
     launches += phase_facade(dev, card, check, torch.cuda.synchronize, u64,
@@ -1210,16 +1556,21 @@ def main() -> int:
             log(f"  {f}")
         return 1
 
-    log(json.dumps({"kernels": [{
-        "name": "spline_gather", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": gather_err["float32"], "ms": ms["spline_gather"],
-        "plain_ms": plain_ms["spline_gather"]}] + [{
-            "name": kname, "route": "cuda", "source": WINDOW_SOURCE,
-            "replaces": replaces, "launches": window_launch[kname],
-            "max_abs_err": window_err[kname], "ms": ms[kname],
-            "plain_ms": plain_ms[kname]}
-            for kname, replaces in WINDOW_KERNELS.items()]}))
+    def record(name, source, replaces, n, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms[name], "plain_ms": plain_ms[name],
+                "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
+                "library_ms": library.get(name)}
+
+    log(json.dumps({"kernels": [
+        record("settls_step", STEP_SOURCE, KERNEL_REPLACES, launches,
+               step_err),
+        record("spline_gather", KERNEL_SOURCE, KERNEL_REPLACES, k1_launches,
+               gather_err["float32"])] + [
+        record(kname, WINDOW_SOURCE, replaces, window_launch[kname],
+               window_err[kname])
+        for kname, replaces in WINDOW_KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,12 +3,14 @@
 A second package beside the JAX one, which stays the reference.  Module
 names match the JAX package so that each counterpart is easy to find.  The
 port imports ``torch`` and never ``jax``.  Its hand-written CUDA kernels are
-built with ``nvcc`` at first use on the GPU: K1 ``spline_gather``
-(``ops/csrc/spline_gather.cu``, through ``ops/cuda_interp.py``) on the
-default gather route, and K2 ``tile_window_gather``, K3
-``sub_window_gather`` and K4 ``pole_window_gather``
-(``ops/csrc/window_gather.cu``, through ``ops/cuda_window.py``) on the
-``engine="blockspec"`` route.
+built with ``nvcc`` at first use on the GPU: the fused SETTLS step
+``settls_step`` (``ops/csrc/settls_step.cu``, through
+``ops/cuda_settls.py``) on the default gather route; K1 ``spline_gather``
+(``ops/csrc/spline_gather.cu``, through ``ops/cuda_interp.py``), one gather
+group per launch; and K2 ``tile_window_gather``, K3 ``sub_window_gather``
+and K4 ``pole_window_gather`` (``ops/csrc/window_gather.cu``, through
+``ops/cuda_window.py``) on the ``engine="blockspec"`` route.  The entry
+points compute on the card unless asked for the CPU (``devices.py``).
 
 Public API (lazy-imported to keep ``import lagrangiancoherence_tpu_torch``
 light):

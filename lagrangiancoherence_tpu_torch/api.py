@@ -20,7 +20,8 @@ Differences from the reference, by design (as in the JAX package):
   Cauchy-Green norm.
 
 Besides the JAX signatures, every entry point takes ``device=`` (default:
-``torch.get_default_device()``; see ``devices.py``), and ``LCS`` takes
+the device of the tensors passed, else the CUDA card, which must exist; pass
+``device="cpu"`` for the CPU; see ``devices.py``), and ``LCS`` takes
 ``kernel=`` as ``parcel_propagation`` does.  The SETTLS stage runs in
 ``torch.get_default_dtype()`` (JAX's x64 switch), the FTLE stage in float64.
 No module here imports pandas: time labels are numpy ``datetime64``.
@@ -187,8 +188,8 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
     Returns ``(positions_x, positions_y)`` Fields: final departure points
     stamped with the last (possibly reversed, quirk Q2) time label, or the
     full trajectory stack when ``return_traj=True``.  ``kernel``: see
-    ``models/settls.resolve_kernel`` (``"auto"`` takes K1 on CUDA at orders
-    1 and 3, the plain gather otherwise).
+    ``models/settls.resolve_kernel`` (``"auto"`` takes the fused SETTLS
+    step on CUDA at orders 1 and 3, its plain version otherwise).
     """
     configure_verbosity(verbose)
     device = resolve_device(device)
@@ -255,7 +256,7 @@ def flowmap_gradient(x_departure, y_departure, sigma=None,
     returns a Field with a leading ``derivatives`` dim of length 9 in the
     reference's element order, computed in float64 on ``device``."""
     from .models.ftle import flowmap_gradient as _core
-    device = resolve_device(device)
+    device = resolve_device(device, x_departure, y_departure)
     x_departure = as_field(x_departure)
     y_departure = as_field(y_departure)
     lats = x_departure.coords["latitude"]

@@ -1,10 +1,12 @@
 """Device placement shared by the port's entry points.
 
-Every entry point takes ``device=``; ``None`` means
-``torch.get_default_device()``, the counterpart of JAX's default device.
-A CUDA device on a machine without one raises, and a tensor that lies on
-another kind of device than the one asked for raises too: nothing moves
-between the host and the card unless the caller asked for it.
+Every entry point takes ``device=``.  ``None`` means the device of the
+tensors the caller passed, and with no tensor the CUDA card: the port runs on
+the card unless the caller asks for the CPU (``device="cpu"``, or CPU
+tensors).  A machine without a card raises rather than falling back to the
+CPU, and a tensor that lies on another kind of device than the one asked for
+raises too: nothing moves between the host and the card unless the caller
+asked for it.
 """
 from __future__ import annotations
 
@@ -14,13 +16,22 @@ import torch
 __all__ = ["resolve_device", "on_device"]
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` → the default device."""
-    device = torch.get_default_device() if device is None \
-        else torch.device(device)
+def resolve_device(device=None, *args) -> torch.device:
+    """``device`` as a ``torch.device``.
+
+    ``None`` → the device of the first tensor among ``args`` (the entry
+    point's data arguments; anything else in them is ignored), else
+    ``torch.device("cuda")``.  A CUDA device raises ``RuntimeError`` on a
+    machine without one.
+    """
+    if device is None:
+        device = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                      "cuda")
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device}: torch.cuda.is_available() "
-                           "is False")
+        raise RuntimeError(f"device={device}: torch.cuda.is_available() is "
+                           "False; pass device='cpu' (or CPU tensors) to "
+                           "compute on the CPU")
     return device
 
 

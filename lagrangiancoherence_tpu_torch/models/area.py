@@ -106,7 +106,7 @@ def find_area(ftle, eigvectors, ridges, qsat=None, qdpt=None,
     """
     from ..field import Field, as_field
     from ..utils.logging import logger
-    device = resolve_device(device)
+    device = resolve_device(device, ftle, eigvectors, ridges)
     ftle = as_field(ftle).sortby("latitude").sortby("longitude")
     ridges = as_field(ridges).sortby("latitude").sortby("longitude")
     if hasattr(eigvectors, "dims"):

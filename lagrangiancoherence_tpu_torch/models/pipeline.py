@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..devices import resolve_device
 from .ftle import flowmap_gradient, ftle_norm
 from .settls import (_as_tensor, grid_state, parcel_propagation_core,
                      resolve_engine, resolve_kernel)
@@ -29,7 +30,9 @@ class FTLEPipeline(nn.Module):
     models/settls.py and models/ftle.py for the stage contracts.  ``kernel``
     is ``"auto"``, ``"cuda"`` or ``"torch"`` (``settls.resolve_kernel``);
     ``engine`` is ``"auto"``, ``"dma-all"`` or ``"blockspec"``
-    (``settls.resolve_engine``).
+    (``settls.resolve_engine``).  ``device``: where the state lives and the
+    pipeline computes; default: the CUDA card (``devices.resolve_device``);
+    pass ``device="cpu"`` for the CPU.
     """
 
     def __init__(self, grid, *, settls_order: int = 0, interp_order: int = 3,
@@ -37,7 +40,7 @@ class FTLEPipeline(nn.Module):
                  engine: str = "auto", dtype: torch.dtype = torch.float64,
                  device=None):
         super().__init__()
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         resolve_kernel(kernel, device, interp_order)   # fail at build time
         resolve_engine(engine)
         self.grid = grid
@@ -90,13 +93,12 @@ def ftle_pipeline(u, v, timestep, grid, *, settls_order: int = 0,
                   return_overflow: bool = False, device=None):
     """(T, ny, nx) winds → (ny, nx) FTLE norm, with ``u``'s dtype.
 
-    ``device``: where to compute; default: ``u``'s device (the CPU for
-    arrays).  With ``return_overflow=True`` the int32 overflow bitmask
-    (always 0 on the K1 route) is returned alongside the field.
+    ``device``: where to compute; default: the device of ``u`` or ``v`` if
+    a tensor, else the CUDA card (``devices.resolve_device``).  With
+    ``return_overflow=True`` the int32 overflow bitmask (always 0 on the
+    fused-step route) is returned alongside the field.
     """
-    if device is None:
-        device = u.device if isinstance(u, torch.Tensor) else "cpu"
-    u = _as_tensor(u, device)
+    u = _as_tensor(u, resolve_device(device, u, v))
     model = FTLEPipeline(grid, settls_order=settls_order,
                          interp_order=interp_order, sigma=sigma,
                          compat=compat, kernel=kernel, engine=engine,

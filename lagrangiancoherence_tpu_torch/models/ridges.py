@@ -140,7 +140,7 @@ def find_ridges_spherical_hessian(da, sigma=0.5, scheme: str = "first_order",
     ``(ridges, eigmin, dt_prod, eigvectors, gradient, angle)``.
     """
     from ..field import Field, as_field
-    device = resolve_device(device)
+    device = resolve_device(device, da)
     da = as_field(da).sortby("latitude").sortby("longitude")
     da = da.transpose("latitude", "longitude")
     lats = da.coords["latitude"]

@@ -22,8 +22,9 @@ Reference semantics replicated exactly (SURVEY.md quirks):
 
 Two gather routes, chosen by ``engine`` (JAX's ``pallas_engine``):
 
-* ``"auto"`` / ``"dma-all"``: the direct per-parcel gather (K1,
-  ``ops/cuda_interp.py``), with no windows; the overflow flag stays 0;
+* ``"auto"`` / ``"dma-all"``: the direct per-parcel gather, one fused
+  step per launch (``ops/cuda_settls.py``: the whole step of a parcel in
+  one thread, K1 redesigned), with no windows; the overflow flag stays 0;
 * ``"blockspec"``: the windowed gather (K2-K4, ``ops/window_interp.py``)
   with JAX's scan structure around it (models/settls.py:92-272, 463-715):
   the polar bands are sort-binned into spatial-tile storage order every
@@ -39,11 +40,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..grid import EARTH_RADIUS
+from ..devices import resolve_device
 from ..ops import pole as P
-from ..ops.cuda_interp import cuda_interp_multi
-from ..ops.interp import (_to_index, interp_at_parcels_multi, prefilter,
-                          spline_filter_matrix)
+from ..ops.cuda_settls import (CONV_Y, clamp_wrap, euler_guess, interleave,
+                               settls_correction, settls_step,
+                               settls_step_torch)
+from ..ops.interp import _to_index, prefilter, spline_filter_matrix
 from ..ops.tiles import SORT_LADDER, TILE_C, TILE_R
 from ..ops.window_interp import windowed_interp_multi
 from ..utils.logging import logger
@@ -85,8 +87,9 @@ def resolve_kernel(kernel: str, device: torch.device, order: int) -> str:
 
 def resolve_engine(engine: str) -> str:
     """``"auto"`` → ``"dma-all"`` (JAX's default engine,
-    ops/pallas_interp.py:102): the direct K1 gather.  ``"blockspec"``
-    takes the windowed route.  ``"dma"`` is not ported yet."""
+    ops/pallas_interp.py:102): the direct gather, one fused step per
+    launch.  ``"blockspec"`` takes the windowed route.  ``"dma"`` is not
+    ported yet."""
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}: expected one of {ENGINES}")
     if engine == "dma":
@@ -104,7 +107,7 @@ def grid_state(grid, order: int, *, dtype: torch.dtype,
     ``px0``/``py0`` (ny, nx)."""
     kw = dict(dtype=dtype, device=device)
     ny, nx = grid.shape
-    conv_y = torch.full((), 180.0 / (EARTH_RADIUS * np.pi), **kw)
+    conv_y = torch.full((), CONV_Y, **kw)
     lat = torch.tensor(grid.lats, **kw)
     px0, py0 = grid.mesh_xy
     return {
@@ -114,19 +117,6 @@ def grid_state(grid, order: int, *, dtype: torch.dtype,
         "px0": torch.tensor(px0, **kw),
         "py0": torch.tensor(py0, **kw),
     }
-
-
-def _clamp_wrap(px, py, *, y_min, y_max, x_min, x_max, cyclic_x):
-    """Boundary handling per LagrangianCoherence LCS/trajectory.py:89-97."""
-    py = torch.where(py > y_min, py, y_min)
-    py = torch.where(py < y_max, py, y_max)
-    if cyclic_x:
-        px = torch.where(px > -180.0, px, torch.remainder(px, 180.0))
-        px = torch.where(px < 180.0, px, -180.0 + torch.remainder(px, 180.0))
-    else:
-        px = torch.where(px < x_min, x_min, px)
-        px = torch.where(px > x_max, x_max, px)
-    return px, py
 
 
 def _sort_bands(grid, order: int):
@@ -226,8 +216,9 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
     grid rows).  ``dt``: 0-dim tensor.  ``conv_x``: (ny, 1) per-home-latitude
     factor.  ``kernel``: ``"cuda"`` (the hand-written kernels) or
     ``"torch"`` (their plain versions).  ``engine``: ``"auto"`` /
-    ``"dma-all"`` (K1's direct gather) or ``"blockspec"`` (the windowed
-    gather); see ``resolve_engine``.  ``rebin`` applies to
+    ``"dma-all"`` (the direct gather: one fused step per launch,
+    ``ops/cuda_settls.py``) or ``"blockspec"`` (the windowed gather); see
+    ``resolve_engine``.  ``rebin`` applies to
     ``"blockspec"``: ``"sort"`` sort-bins the polar bands, False keeps the
     grid layout.  ``progress`` logs one ``Propagating time index`` line per
     step from the host loop (the reference's per-step print,
@@ -236,7 +227,7 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
 
     Returns ``(px, py, overflow)`` — (T, ny, nx) trajectories including
     the initial positions when ``return_traj`` — where ``overflow`` is the
-    int32 0-dim overflow bitmask (always 0 on the K1 route).
+    int32 0-dim overflow bitmask (always 0 on the direct route).
     """
     if kernel not in ("cuda", "torch"):
         raise ValueError(f"settls_scan: kernel={kernel!r} (resolve 'auto' "
@@ -244,46 +235,72 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
     if rebin not in ("sort", False):
         raise ValueError(f"rebin={rebin!r}: expected 'sort' or False")
     T, ny, nx = u.shape
-    order = interp_order
-    dtype, device = u.dtype, u.device
-    conv_y = torch.full((), 180.0 / (EARTH_RADIUS * np.pi), dtype=dtype,
-                        device=device)
     bounds = dict(y_min=grid.y_min, y_max=grid.y_max,
                   x_min=grid.x_min, x_max=grid.x_max)
-    # resident (T*2, ny, nx) stacks: fields 2t, 2t+1 are (u, v) at level t,
-    # so the group at (t, t+1) is the contiguous window [2t, 2t + 4)
+    # resident (T*2, ny, nx) raw stack: fields 2t, 2t+1 are (u, v) at level
+    # t, so the group at (t, t+1) is the contiguous window [2t, 2t + 4)
     W = torch.stack([u, v], dim=1).reshape(T * 2, ny, nx)
-    CW = torch.stack([cu, cv], dim=1).reshape(T * 2, ny, nx)
-    zero_flag = torch.zeros((), dtype=torch.int32, device=device)
-
     if resolve_engine(engine) == "blockspec":
-        if order not in (1, 3):
-            raise NotImplementedError(
-                f"engine='blockspec' implements spline orders 1 and 3; got "
-                f"interp_order={order}")
-        bands = _sort_bands(grid, order) if rebin else []
-        ladder = SORT_LADDER if bands else None
-        # the pole-home rows are sorted once per step and gathered by a
-        # pole-only call (JAX's LCS_POLE_HOIST, on)
-        hoist = ny > 2 * order
+        CW = torch.stack([cu, cv], dim=1).reshape(T * 2, ny, nx)
+        return _windowed_scan(W, CW, px0, py0, dt, conv_x, grid,
+                              settls_order=settls_order, order=interp_order,
+                              return_traj=return_traj, kernel=kernel,
+                              rebin=rebin, progress=progress)
 
-        def gather(t, px, py, nf, **kw):
-            # F=2 groups take 64-row base windows (128 // nf), as JAX's
-            return windowed_interp_multi(
-                W, CW, px, py, order=order, wy=max(WY, 128 // nf), f0=2 * t,
-                nf=nf, ladder=ladder, kernel=kernel,
-                **bounds, **kw)
+    # the direct route: one fused step per launch (kernel "cuda", reading
+    # the interleaved coefficients), or its plain version, one gather group
+    # at a time on the planar stack; each step writes its end positions
+    # once, into the next trajectory slot or a new pair (out of place)
+    if kernel == "cuda":
+        step, CW = settls_step, interleave(cu, cv)
     else:
-        bands, hoist = [], False
+        step = settls_step_torch
+        CW = torch.stack([cu, cv], dim=1).reshape(T * 2, ny, nx)
+    kw = dict(settls_order=settls_order, order=interp_order,
+              cyclic_x=grid.cyclic_x, **bounds)
+    if return_traj:
+        traj_x = torch.empty((T, ny, nx), dtype=u.dtype, device=u.device)
+        traj_y = torch.empty_like(traj_x)
+        traj_x[0], traj_y[0] = px0, py0
+    px, py = px0, py0
+    for t in range(T - 1):
+        if progress:
+            logger.info("Propagating time index %d/%d", t + 1, T - 1)
+        out = (traj_x[t + 1], traj_y[t + 1]) if return_traj else None
+        px, py = step(W, CW, px, py, conv_x, dt, t, out=out, **kw)
+    flag = torch.zeros((), dtype=torch.int32, device=u.device)
+    if return_traj:
+        return traj_x, traj_y, flag
+    return px, py, flag
 
-        def gather(t, px, py, nf):
-            if kernel == "cuda":
-                return cuda_interp_multi(W, CW, px, py, order=order,
-                                         f0=2 * t, nf=nf, **bounds)
-            out = interp_at_parcels_multi(W[2 * t:2 * t + nf],
-                                          CW[2 * t:2 * t + nf], px, py,
-                                          order=order, **bounds)
-            return out, zero_flag
+
+def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
+                   order: int, return_traj: bool, kernel: str, rebin,
+                   progress: bool):
+    """``settls_scan``'s ``engine="blockspec"`` route on the planar raw and
+    coefficient stacks ``W``/``CW`` (2T, ny, nx)."""
+    T, ny, nx = W.shape[0] // 2, *W.shape[1:]
+    dtype, device = W.dtype, W.device
+    conv_y = torch.full((), CONV_Y, dtype=dtype, device=device)
+    bounds = dict(y_min=grid.y_min, y_max=grid.y_max,
+                  x_min=grid.x_min, x_max=grid.x_max)
+    zero_flag = torch.zeros((), dtype=torch.int32, device=device)
+    if order not in (1, 3):
+        raise NotImplementedError(
+            f"engine='blockspec' implements spline orders 1 and 3; got "
+            f"interp_order={order}")
+    bands = _sort_bands(grid, order) if rebin else []
+    ladder = SORT_LADDER if bands else None
+    # the pole-home rows are sorted once per step and gathered by a
+    # pole-only call (JAX's LCS_POLE_HOIST, on)
+    hoist = ny > 2 * order
+
+    def gather(t, px, py, nf, **kw):
+        # F=2 groups take 64-row base windows (128 // nf), as JAX's
+        return windowed_interp_multi(
+            W, CW, px, py, order=order, wy=max(WY, 128 // nf), f0=2 * t,
+            nf=nf, ladder=ladder, kernel=kernel,
+            **bounds, **kw)
 
     def group(t, sets, nf):
         """One gather group: the values at each parcel set, and the flag."""
@@ -297,7 +314,7 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
         return [arr, valsp], fl | flp
 
     def clamp(px, py):
-        return _clamp_wrap(px, py, cyclic_x=grid.cyclic_x, **bounds)
+        return clamp_wrap(px, py, cyclic_x=grid.cyclic_x, **bounds)
 
     px, py, flag = px0, py0, zero_flag
     cx = conv_x.expand(ny, nx).contiguous() if bands else conv_x
@@ -327,16 +344,15 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
         vals, fl = group(t, sets, 2)
         flag = flag | fl
         winds = [(a[0], a[1]) for a in vals]
-        sets = [(*clamp(x + dt * c * ua, y + dt * conv_y * va), c)
+        sets = [(*clamp(*euler_guess(x, y, c, ua, va, dt, conv_y)), c)
                 for (x, y, c), (ua, va) in zip(sets, winds)]
         # SETTLS fixed-point iterations, cumulative form (Q3)
         # (LagrangianCoherence LCS/trajectory.py:100-124)
         for _ in range(settls_order):
             deps, fl = group(t, sets, 4)
             flag = flag | fl
-            sets = [(*clamp(x + 0.5 * dt * c * (ua + 2.0 * d[0] - d[2]),
-                            y + 0.5 * dt * conv_y * (va + 2.0 * d[1] - d[3])),
-                     c)
+            sets = [(*clamp(*settls_correction(x, y, c, ua, va, d, dt,
+                                               conv_y)), c)
                     for (x, y, c), (ua, va), d in zip(sets, winds, deps)]
         px, py = sets[0][:2]
         if hoist:
@@ -376,19 +392,19 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
     kernel : ``"auto"``, ``"cuda"`` or ``"torch"`` (see ``resolve_kernel``).
     engine : ``"auto"``, ``"dma-all"`` or ``"blockspec"`` (see
         ``resolve_engine``); ``rebin``, ``progress``: see ``settls_scan``.
-    device : where to compute; default: ``u``'s device (the CPU for arrays).
+    device : where to compute; default: the device of ``u`` or ``v`` if a
+        tensor, else the CUDA card (``devices.resolve_device``).
     state : ``grid_state`` tensors on that device and dtype, as
         ``FTLEPipeline`` holds them; built from ``grid`` when omitted.
 
     Returns
     -------
     (positions_x, positions_y), plus the int32 ``overflow`` bitmask
-    (always 0 on the K1 route) when ``return_overflow``; (T, ny, nx)
+    (always 0 on the direct route) when ``return_overflow``; (T, ny, nx)
     trajectories including the initial mesh when ``return_traj``.
     """
     resolve_engine(engine)
-    if device is None:
-        device = u.device if isinstance(u, torch.Tensor) else "cpu"
+    device = resolve_device(device, u, v)
     u = _as_tensor(u, device)
     v = _as_tensor(v, device, u.dtype)
     if u.shape[-2:] != tuple(grid.shape) or v.shape != u.shape:

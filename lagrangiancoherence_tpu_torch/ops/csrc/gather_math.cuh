@@ -1,10 +1,11 @@
 // Per-parcel arithmetic shared by the gather kernels (spline_gather.cu,
-// window_gather.cu): the scipy mode='wrap' fold, tap indices and B-spline
-// weights, each operation through a round-to-nearest intrinsic so that nvcc
-// cannot contract a multiply and an add into an FMA.  The plain PyTorch
-// versions (ops/interp.py, ops/window_interp.py) run the same operations in
-// the same order, which is what makes the kernels agree with them bit for
-// bit.
+// settls_step.cu, window_gather.cu): the scipy mode='wrap' fold, tap
+// indices and B-spline weights, and the whole per-parcel gather body
+// (gather_parcel), each operation through a round-to-nearest intrinsic so
+// that nvcc cannot contract a multiply and an add into an FMA.  The plain
+// PyTorch versions (ops/interp.py, ops/window_interp.py) run the same
+// operations in the same order, which is what makes the kernels agree with
+// them bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,6 +80,114 @@ __device__ __forceinline__ void axis_taps(T f, int n, int* idx, T* w) {
 #pragma unroll
   for (int k = 0; k < ORDER + 1; ++k) idx[k] = mirror_tap(i0 + k - ORDER / 2, n);
   bspline_weights<T, ORDER>(sub_rn(f, fl), w);
+}
+
+// Tap layouts: how gather_parcel reads NF prefiltered coefficients at one
+// linear grid position `at`.
+//
+// PlanarTaps: NF (ny, nx) planes `plane` elements apart, K1's
+// (fields, ny, nx) stack: one 4- or 8-byte load per field.
+template <typename T, int NF>
+struct PlanarTaps {
+  const T* base;    // field 0
+  int64_t plane;
+  __device__ __forceinline__ void load(int64_t at, T* v) const {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) v[f] = __ldg(base + f * plane + at);
+  }
+};
+
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+// InterleavedTaps: (levels, ny, nx, 2) (u, v) pairs, one 8- (float) or
+// 16-byte (double) load per level; field 2l + c is component c of level l.
+// `base` is aligned to the pair.
+template <typename T, int NF>
+struct InterleavedTaps {
+  static_assert(NF % 2 == 0, "interleaved taps come in (u, v) pairs");
+  const T* base;    // level 0
+  int64_t level;    // elements between levels: 2 * ny * nx
+  __device__ __forceinline__ void load(int64_t at, T* v) const {
+    using P = typename Pair<T>::type;
+#pragma unroll
+    for (int l = 0; l < NF / 2; ++l) {
+      const P w = __ldg(reinterpret_cast<const P*>(base + l * level) + at);
+      v[2 * l] = w.x;
+      v[2 * l + 1] = w.y;
+    }
+  }
+};
+
+// One parcel's values of NF fields at position (px, py), the numerics of
+// ops/interp.py interp_at_parcels_multi op for op:
+//   * Q4 scaling `n * (p - min) / (max - min)`;
+//   * a pole-home row (`home < ORDER` or `home >= ny - ORDER`) takes the
+//     order-1 'constant' bilinear on the raw planes `raw + f * plane`: 0
+//     outside [0, n-1] or for NaN;
+//   * any other row takes the period-(n-1) wrap fold, mirror-edge taps and
+//     B-spline weights on the prefiltered coefficients that `taps` reads,
+//     y taps outer, x taps inner, weight wy[j] * wx[k] first; a NaN floor
+//     indexes tap 0 and a tap outside the field reads NaN, as `jnp.take`
+//     does in fill mode.
+template <typename T, int ORDER, int NF, class Taps>
+__device__ __forceinline__ void gather_parcel(
+    const T* __restrict__ raw, int64_t plane, const Taps& taps, T px, T py,
+    int home, int ny, int nx, T x_min, T x_den, T y_min, T y_den, T* acc) {
+  constexpr int NT = ORDER + 1;
+  const T xs = div_rn(mul_rn(static_cast<T>(nx), sub_rn(px, x_min)), x_den);
+  const T ys = div_rn(mul_rn(static_cast<T>(ny), sub_rn(py, y_min)), y_den);
+  if (home < ORDER || home >= ny - ORDER) {
+    const bool in_range = ys >= T(0) && ys <= static_cast<T>(ny - 1) &&
+                          xs >= T(0) && xs <= static_cast<T>(nx - 1);
+    if (!in_range) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) acc[f] = T(0);
+      return;
+    }
+    const T y0 = fmin(floor(ys), static_cast<T>(ny - 2));
+    const T x0 = fmin(floor(xs), static_cast<T>(nx - 2));
+    const T ty = sub_rn(ys, y0);
+    const T tx = sub_rn(xs, x0);
+    const T one_ty = sub_rn(T(1), ty);
+    const T one_tx = sub_rn(T(1), tx);
+    const T w00 = mul_rn(one_ty, one_tx);
+    const T w01 = mul_rn(one_ty, tx);
+    const T w10 = mul_rn(ty, one_tx);
+    const T w11 = mul_rn(ty, tx);
+    const int64_t base =
+        static_cast<int64_t>(y0) * nx + static_cast<int64_t>(x0);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const T* r = raw + f * plane + base;
+      acc[f] = add_rn(add_rn(add_rn(mul_rn(r[0], w00), mul_rn(r[1], w01)),
+                             mul_rn(r[nx], w10)),
+                      mul_rn(r[nx + 1], w11));
+    }
+    return;
+  }
+  int yi[NT], xi[NT];
+  T wy[NT], wx[NT];
+  axis_taps<T, ORDER>(fold_wrap(ys, ny), ny, yi, wy);
+  axis_taps<T, ORDER>(fold_wrap(xs, nx), nx, xi, wx);
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = T(0);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int64_t row_base = static_cast<int64_t>(yi[j]) * nx;
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      const int64_t lin = row_base + xi[k];
+      const bool ok = lin >= 0 && lin < plane;
+      const T w = mul_rn(wy[j], wx[k]);
+      T v[NF];
+      taps.load(ok ? lin : 0, v);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        acc[f] = add_rn(acc[f], mul_rn(w, ok ? v[f] : nan_value<T>()));
+    }
+  }
 }
 
 }  // namespace lcs

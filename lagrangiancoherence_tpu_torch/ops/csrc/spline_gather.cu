@@ -1,5 +1,5 @@
-// K1 spline_gather: F stacked fields evaluated at parcel positions, the
-// SETTLS hot path of lagrangiancoherence_tpu_torch.
+// K1 spline_gather: F stacked fields evaluated at parcel positions, one
+// gather group of lagrangiancoherence_tpu_torch's SETTLS loop per launch.
 //
 // Replaces the Pallas TPU kernel `_engine_kernel`
 // (lagrangiancoherence_tpu/ops/pallas_interp.py:793) and its tile bodies.
@@ -17,19 +17,18 @@
 // L1/L2 more than by device memory.  This first version stages nothing in
 // shared memory and uses no TMA.
 //
-// Numerics follow the plain PyTorch version (ops/interp.py) op for op:
-//   * Q4 scaling `n * (p - min) / (max - min)`, then the period-(n-1) wrap
-//     fold, mirror-edge taps and cubic B-spline weights, each operation
-//     through a round-to-nearest intrinsic so that nvcc cannot contract a
-//     multiply and an add into an FMA (a one-ulp slip at the fold boundary
-//     moves a tap and the value by ~1e-2);
-//   * accumulation y taps outer, x taps inner, weight wy[j] * wx[k] first;
-//   * a NaN floor indexes tap 0 and a tap outside the field reads NaN, as
-//     `jnp.take` does in fill mode;
-//   * pole-home rows (`row < order` or `row >= ny - order`) evaluate only
-//     the order-1 'constant' bilinear on the raw fields: 0 outside
-//     [0, n-1] or for NaN.  A block covers a segment of one home row, so
-//     this branch is uniform across each warp.
+// Numerics follow the plain PyTorch version (ops/interp.py) op for op; the
+// per-parcel body is gather_math.cuh's gather_parcel, which the fused
+// SETTLS step (settls_step.cu) shares.  Every operation goes through a
+// round-to-nearest intrinsic so that nvcc cannot contract a multiply and an
+// add into an FMA (a one-ulp slip at the fold boundary moves a tap and the
+// value by ~1e-2).  Pole-home rows (`row < order` or `row >= ny - order`)
+// evaluate only the order-1 'constant' bilinear on the raw fields; a block
+// covers a segment of one home row, so that branch is uniform across each
+// warp.
+//
+// Since the fused step took over the main path, K1 runs where a caller
+// gathers one group at a time (chip_smoke.py's per-group loop).
 #include "gather_math.cuh"
 
 namespace {
@@ -44,72 +43,16 @@ spline_gather_kernel(const T* __restrict__ raw, const T* __restrict__ coeffs,
                      const T* __restrict__ px, const T* __restrict__ py,
                      T* __restrict__ out, int ny, int nx, int rows, int cols,
                      int row_offset, T x_min, T x_den, T y_min, T y_den) {
-  constexpr int NT = ORDER + 1;
   const int row = blockIdx.y;
   const int col = blockIdx.x * kBlock + threadIdx.x;
   if (col >= cols) return;
   const int64_t p = static_cast<int64_t>(row) * cols + col;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t out_plane = static_cast<int64_t>(rows) * cols;
-
-  // Q4 scaling: n * (p - min) / (max - min)
-  const T xs = div_rn(mul_rn(static_cast<T>(nx), sub_rn(px[p], x_min)), x_den);
-  const T ys = div_rn(mul_rn(static_cast<T>(ny), sub_rn(py[p], y_min)), y_den);
-
   T acc[NF];
-  const int home = row + row_offset;
-  if (home < ORDER || home >= ny - ORDER) {
-    // pole-home row: order-1 mode='constant' bilinear on the raw fields
-    const bool in_range = ys >= T(0) && ys <= static_cast<T>(ny - 1) &&
-                          xs >= T(0) && xs <= static_cast<T>(nx - 1);
-    if (!in_range) {
-#pragma unroll
-      for (int f = 0; f < NF; ++f) acc[f] = T(0);
-    } else {
-      const T y0 = fmin(floor(ys), static_cast<T>(ny - 2));
-      const T x0 = fmin(floor(xs), static_cast<T>(nx - 2));
-      const T ty = sub_rn(ys, y0);
-      const T tx = sub_rn(xs, x0);
-      const T one_ty = sub_rn(T(1), ty);
-      const T one_tx = sub_rn(T(1), tx);
-      const T w00 = mul_rn(one_ty, one_tx);
-      const T w01 = mul_rn(one_ty, tx);
-      const T w10 = mul_rn(ty, one_tx);
-      const T w11 = mul_rn(ty, tx);
-      const int64_t base = static_cast<int64_t>(y0) * nx + static_cast<int64_t>(x0);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const T* r = raw + f * plane + base;
-        acc[f] = add_rn(add_rn(add_rn(mul_rn(r[0], w00), mul_rn(r[1], w01)),
-                               mul_rn(r[nx], w10)),
-                        mul_rn(r[nx + 1], w11));
-      }
-    }
-  } else {
-    // spline row: order-ORDER mode='wrap' on the prefiltered coefficients
-    int yi[NT], xi[NT];
-    T wy[NT], wx[NT];
-    axis_taps<T, ORDER>(fold_wrap(ys, ny), ny, yi, wy);
-    axis_taps<T, ORDER>(fold_wrap(xs, nx), nx, xi, wx);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) acc[f] = T(0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int64_t row_base = static_cast<int64_t>(yi[j]) * nx;
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        const int64_t lin = row_base + xi[k];
-        const bool ok = lin >= 0 && lin < plane;
-        const int64_t at = ok ? lin : 0;
-        const T w = mul_rn(wy[j], wx[k]);
-#pragma unroll
-        for (int f = 0; f < NF; ++f) {
-          const T v = ok ? coeffs[f * plane + at] : nan_value<T>();
-          acc[f] = add_rn(acc[f], mul_rn(w, v));
-        }
-      }
-    }
-  }
+  gather_parcel<T, ORDER, NF>(raw, plane, PlanarTaps<T, NF>{coeffs, plane},
+                              px[p], py[p], row + row_offset, ny, nx, x_min,
+                              x_den, y_min, y_den, acc);
 #pragma unroll
   for (int f = 0; f < NF; ++f) out[f * out_plane + p] = acc[f];
 }

@@ -1,4 +1,6 @@
-"""K1 ``spline_gather``: the hand-written CUDA gather of the SETTLS hot path.
+"""K1 ``spline_gather``: the hand-written CUDA gather, one gather group per
+launch (the fused step of ``ops/cuda_settls.py`` shares its per-parcel
+body and carries the main path).
 
 Counterpart of ``lagrangiancoherence_tpu/ops/pallas_interp.py``
 ``pallas_interp_multi``; the kernel (``csrc/spline_gather.cu``) replaces the

@@ -43,7 +43,7 @@ def idw_interpolate(x, y, z, xi, yi, power: float = 2.0,
     ``(x, y, z)`` onto query points ``(xi, yi)`` on ``device``
     (LagrangianCoherence LCS/tools.py:284-299).  Computes the full
     (n_query, n_sample) haversine matrix in one shot."""
-    device = resolve_device(device)
+    device = resolve_device(device, x, y, z, xi, yi)
     x, y, z, xi, yi = (on_device(a, device) for a in (x, y, z, xi, yi))
     d = haversine(x[None, :], y[None, :], xi[:, None], yi[:, None])
     w = 1.0 / torch.pow(d, power)

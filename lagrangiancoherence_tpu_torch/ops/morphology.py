@@ -78,7 +78,7 @@ def threshold_local(image, block_size: int, method: str = "gaussian",
     LagrangianCoherence LCS/area_of_influence.py:195-196)."""
     if block_size % 2 == 0:
         raise ValueError("block_size must be odd")
-    img = on_device(image, resolve_device(device))
+    img = on_device(image, resolve_device(device, image))
     if method == "gaussian":
         sigma = (block_size - 1) / 6.0
         stat = gaussian_filter(img, sigma=sigma)
@@ -126,12 +126,12 @@ def _neighbor_or(mask: torch.Tensor, connectivity: int) -> torch.Tensor:
 def binary_dilation(mask, connectivity: int = 1, device=None) -> torch.Tensor:
     """Dilate a boolean mask on ``device``; connectivity 1 = cross footprint
     (the skimage default), 2 = full 3x3 square."""
-    m = on_device(mask, resolve_device(device)).to(torch.bool)
+    m = on_device(mask, resolve_device(device, mask)).to(torch.bool)
     return _neighbor_or(m, connectivity)
 
 
 def binary_erosion(mask, connectivity: int = 1, device=None) -> torch.Tensor:
-    m = on_device(mask, resolve_device(device)).to(torch.bool)
+    m = on_device(mask, resolve_device(device, mask)).to(torch.bool)
     return ~_neighbor_or(~m, connectivity)
 
 
@@ -170,7 +170,7 @@ def skeletonize(mask, max_iter: int = 256, device=None) -> torch.Tensor:
     ``CHECK_EVERY`` sweeps.  Input: 2-D 0/1 or boolean; output in the
     input's dtype (host arrays: ``on_device``'s).
     """
-    img = on_device(mask, resolve_device(device))
+    img = on_device(mask, resolve_device(device, mask))
     m = img > 0
     done = 0
     while done < max_iter:

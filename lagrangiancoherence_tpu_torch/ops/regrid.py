@@ -46,7 +46,7 @@ def regrid_linear_nearest(field, src_lats: np.ndarray, src_lons: np.ndarray,
     (the reference's NaN-fallback composite,
     LagrangianCoherence LCS/LCS.py:109-114).  A host array is computed in
     ``torch.get_default_dtype()``, a tensor in its own dtype."""
-    device = resolve_device(device)
+    device = resolve_device(device, field)
     f = on_device(field, device)
     ylo, yhi, ty, y_in, y_near = _axis_weights(src_lats, dst_lats)
     xlo, xhi, tx, x_in, x_near = _axis_weights(src_lons, dst_lons)

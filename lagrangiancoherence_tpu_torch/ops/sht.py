@@ -99,7 +99,7 @@ def truncate(field, lats: np.ndarray, truncation: int = 20,
     dtype.  On CUDA the operator product needs full-precision float32
     matmuls, as the prefilter does (``ops/interp._check_matmul_precision``).
     """
-    device = resolve_device(device)
+    device = resolve_device(device, field)
     f = on_device(field, device)
     if device.type == "cuda":
         _check_matmul_precision()

@@ -117,7 +117,7 @@ def backward():
     U, V = saddle()
     kw = dict(timestep=-6 * 3600, SETTLS_order=2, return_dpts=True)
     want = JA.LCS(**kw)(u=U, v=V, verbose=False, return_traj=True)
-    got = TA.LCS(**kw)(u=port(U)[0], v=port(V)[0], verbose=False,
+    got = TA.LCS(**kw, device="cpu")(u=port(U)[0], v=port(V)[0], verbose=False,
                        return_traj=True)
     return want, got
 
@@ -127,7 +127,8 @@ def forward():
     U, V = saddle()
     kw = dict(timestep=6 * 3600, SETTLS_order=2, return_dpts=True)
     return (JA.LCS(**kw)(u=U, v=V, verbose=False),
-            TA.LCS(**kw)(u=port(U)[0], v=port(V)[0], verbose=False))
+            TA.LCS(**kw, device="cpu")(u=port(U)[0], v=port(V)[0],
+                                       verbose=False))
 
 
 @pytest.fixture(scope="module")
@@ -142,7 +143,8 @@ def global_runs():
             kw = dict(timestep=-6 * 3600, SETTLS_order=1, return_dpts=True)
             call = dict(verbose=False, isglobal=True, truncation=trunc)
             out[trunc] = (JA.LCS(**kw)(u=U, v=V, **call),
-                          TA.LCS(**kw)(u=port(U)[0], v=port(V)[0], **call))
+                          TA.LCS(**kw, device="cpu")(u=port(U)[0],
+                                                     v=port(V)[0], **call))
         return out[trunc]
     return run
 
@@ -158,7 +160,8 @@ class TestReturnShapes:
     def test_arity_and_values(self, backward, dpts, traj, n):
         want5, _ = backward
         U, V = port(*saddle())
-        out = TA.LCS(timestep=-6 * 3600, SETTLS_order=2, return_dpts=dpts)(
+        out = TA.LCS(timestep=-6 * 3600, SETTLS_order=2, return_dpts=dpts,
+                     device="cpu")(
             u=U, v=V, verbose=False, return_traj=traj)
         out = out if isinstance(out, tuple) else (out,)
         assert len(out) == n
@@ -230,7 +233,7 @@ class TestAgainstJax:
         (_, jxd, jyd, *_), _ = backward
         U, V = port(*saddle())
         got = TA.LCS(timestep=-6 * 3600, SETTLS_order=2, gauss_sigma=sigma,
-                     compat=compat)(u=U, v=V, verbose=False)
+                     compat=compat, device="cpu")(u=U, v=V, verbose=False)
         assert_rel(got.data[0], eager_ftle(jxd, jyd, sigma=sigma,
                                            compat=compat), FTLE_RTOL)
 
@@ -258,7 +261,7 @@ class TestSubdomain:
                   return_dpts=True)
         want, jxd, jyd, *_ = JA.LCS(**kw)(u=U, v=V, verbose=False,
                                           return_traj=True)
-        got, xd, yd = TA.LCS(**kw)(u=port(U)[0], v=port(V)[0],
+        got, xd, yd = TA.LCS(**kw, device="cpu")(u=port(U)[0], v=port(V)[0],
                                    verbose=False)
         assert_coords(got, want)
         assert got.coords["latitude"].min() > -50
@@ -274,7 +277,7 @@ class TestSubdomain:
 
     def test_isglobal_drops_subdomain(self, global_runs):
         _, (got, *_) = global_runs(10)
-        lcs = TA.LCS(timestep=-6 * 3600, subdomain=SUB)
+        lcs = TA.LCS(timestep=-6 * 3600, subdomain=SUB, device="cpu")
         U, V = port(*vortex_global())
         out = lcs(u=U, v=V, verbose=False, isglobal=True, truncation=10)
         assert lcs.subdomain is None and out.shape == got.shape
@@ -295,7 +298,7 @@ class TestResample:
         U, V = saddle(nt=4)
         kw = dict(timestep=-6 * 3600, SETTLS_order=2, return_dpts=True)
         want, jxd, jyd = JA.LCS(**kw)(u=U, v=V, verbose=False, resample="3h")
-        got, xd, yd = TA.LCS(**kw)(u=port(U)[0], v=port(V)[0],
+        got, xd, yd = TA.LCS(**kw, device="cpu")(u=port(U)[0], v=port(V)[0],
                                    verbose=False, resample="3h")
         assert got.shape == (1, 60, 60)
         assert_coords(got, want)
@@ -344,7 +347,7 @@ class TestParcelPropagationFacade:
         kw = dict(timestep=-6 * 3600, propdim="time", verbose=False,
                   return_traj=True, SETTLS_order=1, cyclic_xboundary=True)
         jx, jy = JA.parcel_propagation(U, V, **kw)
-        x, y = TA.parcel_propagation(*port(U, V), **kw)
+        x, y = TA.parcel_propagation(*port(U, V), **kw, device="cpu")
         # Q2: labels are reversed for backward integration
         times = U.coords["time"]
         assert x.coords["time"][0] == times[-1]
@@ -356,14 +359,16 @@ class TestParcelPropagationFacade:
     def test_final_positions_carry_last_label(self, backward):
         U, V = port(*saddle())
         x, _ = TA.parcel_propagation(U, V, timestep=-6 * 3600,
-                                     SETTLS_order=2, verbose=False)
+                                     SETTLS_order=2, verbose=False,
+                                     device="cpu")
         (_, jxd, *_), _ = backward
         assert x.coords["time"][0] == U.coords["time"][0]
         assert_positions(x, jxd)
 
     def test_plain_numpy_rejected_without_dims(self):
         with pytest.raises(TypeError):
-            TA.parcel_propagation(np.zeros((3, 4, 5)), np.zeros((3, 4, 5)))
+            TA.parcel_propagation(np.zeros((3, 4, 5)), np.zeros((3, 4, 5)),
+                                  device="cpu")
 
     def test_traj_rejects_360day_calendar(self):
         class Datetime360Day:       # stand-in for cftime.Datetime360Day
@@ -378,7 +383,8 @@ class TestParcelPropagationFacade:
         V2 = Field(V.data, V.dims, dict(coords), name="v")
         with pytest.raises(AssertionError, match="Datetime360Day"):
             TA.parcel_propagation(U2, V2, timestep=6 * 3600, verbose=False,
-                                  return_traj=True, cyclic_xboundary=True)
+                                  return_traj=True, cyclic_xboundary=True,
+                                  device="cpu")
 
     def test_dtype_follows_default_dtype(self, backward):
         (_, jxd, *_), _ = backward
@@ -386,7 +392,8 @@ class TestParcelPropagationFacade:
         torch.set_default_dtype(torch.float32)
         try:
             x, _ = TA.parcel_propagation(U, V, timestep=-6 * 3600,
-                                         SETTLS_order=2, verbose=False)
+                                         SETTLS_order=2, verbose=False,
+                                         device="cpu")
         finally:
             torch.set_default_dtype(torch.float64)
         assert x.data.dtype == np.float32
@@ -405,8 +412,9 @@ class TestParcelPropagationFacade:
         LCS/trajectory.py:81); verbose=False logs none."""
         U, V = port(*saddle())
         with caplog.at_level(logging.INFO, logger=logger.name):
-            TA.parcel_propagation(U, V, timestep=6 * 3600.0, verbose=True)
-            TA.parcel_propagation(U, V, timestep=6 * 3600.0, verbose=False)
+            for verbose in (True, False):
+                TA.parcel_propagation(U, V, timestep=6 * 3600.0,
+                                      verbose=verbose, device="cpu")
         lines = [r.message for r in caplog.records
                  if "Propagating time index" in r.message]
         assert lines == [f"Propagating time index {t}/4"
@@ -417,7 +425,8 @@ def test_flowmap_gradient_facade_matches_jax(backward):
     (_, jxd, jyd, *_), _ = backward
     for sigma in (None, 1.1):
         want = JA.flowmap_gradient(jxd, jyd, sigma=sigma)
-        got = TA.flowmap_gradient(*port(jxd, jyd), sigma=sigma)
+        got = TA.flowmap_gradient(*port(jxd, jyd), sigma=sigma,
+                                  device="cpu")
         assert got.name == "def_tensor" and got.shape == (9, 60, 60)
         assert_coords(got, want)
         assert_rel(got.data, want.data, FTLE_RTOL)
@@ -432,7 +441,7 @@ class TestInputs:
         from lagrangiancoherence_tpu_torch.utils.io import save_dataset
         _, (want, *_) = backward
         U, V = port(*saddle())
-        lcs = TA.LCS(timestep=-6 * 3600, SETTLS_order=2)
+        lcs = TA.LCS(timestep=-6 * 3600, SETTLS_order=2, device="cpu")
 
         class Dataset:              # duck-typed xarray Dataset
             data_vars = ("u", "v")
@@ -466,8 +475,20 @@ class TestInputs:
 
 class TestDevices:
     def test_default_device_is_torchs(self):
-        assert resolve_device(None) == torch.get_default_device()
-        assert TA.LCS().device == torch.get_default_device()
+        """No device= means the tensors' device, else the card, which
+        must exist: no CPU fallback."""
+        t = torch.zeros(2)
+        assert resolve_device(None, np.zeros(2), t) == t.device
+        assert resolve_device("cpu", t) == torch.device("cpu")
+        if torch.cuda.is_available():
+            assert TA.LCS().device == resolve_device(None) \
+                == torch.device("cuda")
+            return
+        for make in (lambda: resolve_device(None), TA.LCS,
+                     lambda: TA.parcel_propagation(*port(*saddle()),
+                                                   verbose=False)):
+            with pytest.raises(RuntimeError, match="device=cuda"):
+                make()
 
     def test_cuda_without_a_card_raises(self):
         if torch.cuda.is_available():
@@ -526,7 +547,7 @@ def test_field_ops_match_jax(op):
 def test_field_interp_to_matches_jax():
     f, jf = make_field(Field), make_field(JField)
     lats, lons = np.linspace(-40, 35, 11), np.linspace(-70, 50, 17)
-    got = f.interp_to(lats, lons)
+    got = f.interp_to(lats, lons, device="cpu")
     want = jf.interp_to(lats, lons)
     np.testing.assert_allclose(got.data, want.data, rtol=0, atol=1e-12)
     assert_coords(got, want)

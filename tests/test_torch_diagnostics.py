@@ -154,7 +154,8 @@ def test_facade_six_outputs_match_jax():
               isglobal=False)
     with jax.disable_jit():
         want = JR.find_ridges_spherical_hessian(jf, **kw)
-    got = find_ridges_spherical_hessian(field_from_jax(jf), **kw)
+    got = find_ridges_spherical_hessian(field_from_jax(jf), **kw,
+                                        device="cpu")
     assert len(got) == 6
     for g, w in zip(got, want):
         assert g.dims == w.dims and g.name == w.name
@@ -170,9 +171,11 @@ def test_facade_two_outputs_scheme_ignored_and_crest():
     f, lats, lons = ridge_test_field()
     fld = Field(f, DIMS, {"latitude": lats, "longitude": lons})
     a = find_ridges_spherical_hessian(fld, sigma=1.2, tolerance_threshold=1e-5,
-                                      scheme="first_order", isglobal=False)
+                                      scheme="first_order", isglobal=False,
+                                      device="cpu")
     b = find_ridges_spherical_hessian(fld, sigma=1.2, tolerance_threshold=1e-5,
-                                      scheme="second_order", isglobal=False)
+                                      scheme="second_order", isglobal=False,
+                                      device="cpu")
     assert len(a) == 2
     np.testing.assert_array_equal(a[0].data, b[0].data)
     ridges, eigmin = a
@@ -186,7 +189,8 @@ def test_facade_dtype_follows_default_dtype():
     fld = Field(f, DIMS, {"latitude": lats, "longitude": lons})
     torch.set_default_dtype(torch.float32)
     try:
-        ridges, eigmin = find_ridges_spherical_hessian(fld, isglobal=False)
+        ridges, eigmin = find_ridges_spherical_hessian(fld, isglobal=False,
+                                                       device="cpu")
     finally:
         torch.set_default_dtype(torch.float64)
     assert ridges.data.dtype == eigmin.data.dtype == np.float32
@@ -221,9 +225,10 @@ def test_threshold_local_median_matches_scipy(block):
 
 def test_threshold_local_errors():
     with pytest.raises(ValueError):
-        TM.threshold_local(np.zeros((8, 8)), 4)
+        TM.threshold_local(np.zeros((8, 8)), 4, device="cpu")
     with pytest.raises(ValueError):
-        TM.threshold_local(np.zeros((8, 8)), 3, method="nope")
+        TM.threshold_local(np.zeros((8, 8)), 3, method="nope",
+                           device="cpu")
 
 
 def test_otsu_matches_jax():
@@ -260,7 +265,7 @@ def test_dilation_erosion_match_jax(mask, connectivity):
 def test_dilation_does_not_wrap():
     m = np.zeros((5, 5), bool)
     m[0, 0] = True
-    d = TM.binary_dilation(m).numpy()
+    d = TM.binary_dilation(m, device="cpu").numpy()
     assert d.sum() == 3 and not d[-1, 0] and not d[0, -1]
 
 
@@ -386,13 +391,14 @@ def test_find_area_facade_matches_jax(caplog):
                  JField(ridges, DIMS, coords))
         want = JAr.find_area(*jargs, qsat=qsat, qdpt=qdpt, max_steps=16)
         got = find_area(*(field_from_jax(a) for a in jargs), qsat=qsat,
-                        qdpt=qdpt, max_steps=16)
+                        qdpt=qdpt, max_steps=16, device="cpu")
         assert got.dims == DIMS and got.name == "bounds"
         np.testing.assert_array_equal(got.data, want.data)
     # an (ny, nx, 2) array for the eigenvectors, and the overflow warning
     with caplog.at_level("WARNING"):
         out = find_area(Field(ftle + 5.0, DIMS, coords), ev,
-                        Field(ridges, DIMS, coords), max_steps=4)
+                        Field(ridges, DIMS, coords), max_steps=4,
+                        device="cpu")
     assert out.data.sum() > 0
     assert any("max_steps=4" in r.message for r in caplog.records)
 
@@ -420,10 +426,11 @@ def test_idw_matches_jax():
     xi, yi = rng.uniform(-9, 9, 30), rng.uniform(-9, 9, 30)
     for power in (1.0, 2.0, 3.5):
         want = np.asarray(JI.idw_interpolate(x, y, z, xi, yi, power=power))
-        got = TI.idw_interpolate(x, y, z, xi, yi, power=power).numpy()
+        got = TI.idw_interpolate(x, y, z, xi, yi, power=power,
+                                 device="cpu").numpy()
         np.testing.assert_allclose(got, want, rtol=IDW_RTOL)
     out = TI.idw_interpolate(x, y, np.full(50, 3.25), np.array([0.0]),
-                             np.array([0.0])).numpy()
+                             np.array([0.0]), device="cpu").numpy()
     np.testing.assert_allclose(out, 3.25, rtol=1e-12)
 
 
@@ -432,7 +439,7 @@ def test_idw_regrid_matches_jax():
     z = np.array([0.0, 10.0, 4.0])
     lats, lons = np.linspace(-2, 2, 5), np.linspace(-8, 8, 17)
     want = JI.idw_regrid(x, y, z, lons, lats)
-    got = TI.idw_regrid(x, y, z, lons, lats)
+    got = TI.idw_regrid(x, y, z, lons, lats, device="cpu")
     assert got.shape == (5, 17)
     np.testing.assert_allclose(got, want, rtol=IDW_RTOL)
     assert got[2, 1] < 2.0 and got[2, -2] > 8.0

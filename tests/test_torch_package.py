@@ -48,7 +48,8 @@ from lagrangiancoherence_tpu_torch.ops import cuda_interp
 lats, lons = np.linspace(-90, 90, 9), np.linspace(-180, 160, 10)
 u = np.ones((3, 9, 10)); v = 0.5 * np.ones((3, 9, 10))
 out, flag = L.ftle_pipeline(u, v, -3600.0, L.Grid(lats, lons, True),
-                            settls_order=1, return_overflow=True)
+                            settls_order=1, return_overflow=True,
+                            device="cpu")
 assert out.shape == (9, 10) and int(flag) == 0
 assert cuda_interp.LAUNCHES == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -104,13 +105,14 @@ def test_cuda_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ftle_pipeline(u, u, 3600.0, grid, kernel="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        FTLEPipeline(grid, kernel="cuda")
+        FTLEPipeline(grid, kernel="cuda", device="cpu")
 
 
 def test_cpu_path_never_launches():
     from lagrangiancoherence_tpu_torch import Grid, ftle_pipeline
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_window
-    before = cuda_interp.LAUNCHES
+    from lagrangiancoherence_tpu_torch.ops import (cuda_interp, cuda_settls,
+                                                   cuda_window)
+    before = cuda_interp.LAUNCHES + cuda_settls.LAUNCHES
     # the blockspec route's base window needs 64 padded rows: 33, not 9
     for ny, engine in ((9, "auto"), (33, "blockspec")):
         grid = Grid(np.linspace(-90, 90, ny), np.linspace(-180, 160, 10),
@@ -119,7 +121,7 @@ def test_cpu_path_never_launches():
         for kernel in ("auto", "torch"):
             ftle_pipeline(u, 0.5 * u, 3600.0, grid, settls_order=1,
                           kernel=kernel, engine=engine)
-    assert cuda_interp.LAUNCHES == before == 0
+    assert cuda_interp.LAUNCHES + cuda_settls.LAUNCHES == before == 0
     assert set(cuda_window.LAUNCHES.values()) == {0}
 
 
@@ -147,12 +149,14 @@ def test_build_names_library_by_source_hash():
     assert path == _build.library_path()
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert [p.name for p in _build._sources()] == ["spline_gather.cu",
+    assert [p.name for p in _build._sources()] == ["settls_step.cu",
+                                                   "spline_gather.cu",
                                                    "window_gather.cu"]
     assert [p.name for p in _build._headers()] == ["gather_math.cuh"]
     assert set(_build.SIGNATURES) == {
-        f"{k}_{t}" for k in ("spline_gather", "tile_window_gather",
-                             "sub_window_gather", "pole_window_gather")
+        f"{k}_{t}" for k in ("spline_gather", "settls_step",
+                             "tile_window_gather", "sub_window_gather",
+                             "pole_window_gather")
         for t in ("f32", "f64")}
 
 

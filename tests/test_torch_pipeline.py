@@ -146,7 +146,8 @@ def test_pipeline_matches_oracle(case):
                          interp_order=3, cyclic_x=True)
     got = ftle_pipeline(u, v, DT, JaxGrid(lats=lats, lons=lons,
                                           cyclic_x=True),
-                        settls_order=SETTLS_ORDER, interp_order=3).numpy()
+                        settls_order=SETTLS_ORDER, interp_order=3,
+                        device="cpu").numpy()
     _assert_rel(got[_rows(case)], want[_rows(case)])
 
 
@@ -156,7 +157,8 @@ def test_exact_pole_rows_stay_in_bounds():
     u, v, lats, lons = _winds("global")
     jx, jy = (np.asarray(a) for a in _jax_departures("global"))
     tx, ty = parcel_propagation_core(u, v, DT, grid_from_jax(JaxGrid(
-        lats=lats, lons=lons, cyclic_x=True)), settls_order=SETTLS_ORDER)
+        lats=lats, lons=lons, cyclic_x=True)), settls_order=SETTLS_ORDER,
+        device="cpu")
     tx, ty = tx.numpy(), ty.numpy()
     np.testing.assert_allclose(tx[1:-1], jx[1:-1], rtol=0, atol=1e-10)
     np.testing.assert_allclose(ty[1:-1], jy[1:-1], rtol=0, atol=1e-10)
@@ -171,7 +173,8 @@ def test_nan_wind_propagates_like_jax():
     jgrid = JaxGrid(lats=lats, lons=lons, cyclic_x=True)
     px, py = _jax_departures("vortex", nan_wind=True)
     want = _jax_ftle(px, py, jgrid)
-    got = ftle_pipeline(u, v, DT, jgrid, settls_order=SETTLS_ORDER).numpy()
+    got = ftle_pipeline(u, v, DT, jgrid, settls_order=SETTLS_ORDER,
+                        device="cpu").numpy()
     assert np.isnan(want).any() and not np.isnan(want).all()
     _assert_rel(got, want)
 
@@ -237,7 +240,8 @@ def test_convert_round_trip():
     assert torch.equal(tu, torch.tensor(u)) and torch.equal(d["u"], tu)
     np.testing.assert_array_equal(tv.numpy(), v)
 
-    model = FTLEPipeline(grid, settls_order=SETTLS_ORDER, dtype=torch.float64)
+    model = FTLEPipeline(grid, settls_order=SETTLS_ORDER, dtype=torch.float64,
+                         device="cpu")
     ny, nx = grid.shape
     model.load_numpy_state({"prefilter_y": spline_filter_matrix(ny, 3),
                             "prefilter_x": spline_filter_matrix(nx, 3)})
@@ -250,5 +254,6 @@ def test_convert_round_trip():
     before = cuda_interp.LAUNCHES
     got = model(tu, tv, DT)
     assert cuda_interp.LAUNCHES == before
-    want = ftle_pipeline(u, v, DT, grid, settls_order=SETTLS_ORDER)
+    want = ftle_pipeline(u, v, DT, grid, settls_order=SETTLS_ORDER,
+                         device="cpu")
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13)

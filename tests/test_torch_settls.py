@@ -19,7 +19,7 @@ from lagrangiancoherence_tpu.testing import flows
 from lagrangiancoherence_tpu.testing.oracle import oracle_parcel_propagation
 from lagrangiancoherence_tpu_torch.grid import Grid
 from lagrangiancoherence_tpu_torch.models import settls as TS
-from lagrangiancoherence_tpu_torch.ops import cuda_interp
+from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
 
 torch.set_num_threads(1)
 
@@ -104,7 +104,7 @@ def test_noncyclic_saddle_clamps_like_oracle():
     u, v, lats, lons, _ = flows.ideal_saddle(**flows.SADDLE_CONFIG)
     grid = Grid(lats=lats, lons=lons, cyclic_x=False)
     gx, gy = TS.parcel_propagation_core(u, v, 6 * 3600, grid, settls_order=2,
-                                        interp_order=3)
+                                        interp_order=3, device="cpu")
     ref_x, ref_y = oracle_parcel_propagation(u, v, lats, lons, 6 * 3600,
                                              settls_order=2, interp_order=3,
                                              cyclic_x=False)
@@ -126,7 +126,7 @@ def test_clamp_wrap_matches_jax(cyclic_x, dtype):
     b = dict(y_min=-90.0, y_max=90.0, x_min=-180.0, x_max=179.75,
              cyclic_x=cyclic_x)
     jx, jy = JS._clamp_wrap(jnp.asarray(px), jnp.asarray(py), **b)
-    tx, ty = TS._clamp_wrap(torch.tensor(px), torch.tensor(py), **b)
+    tx, ty = cuda_settls.clamp_wrap(torch.tensor(px), torch.tensor(py), **b)
     assert tx.dtype == torch.from_numpy(px).dtype
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
@@ -147,4 +147,5 @@ def test_kernel_resolution():
     u, v, lats, lons, _ = _vortex_small()
     with pytest.raises(ValueError, match="CUDA tensors"):
         TS.parcel_propagation_core(u, v, 3600.0,
-                                   Grid(lats=lats, lons=lons), kernel="cuda")
+                                   Grid(lats=lats, lons=lons), kernel="cuda",
+                                   device="cpu")

@@ -143,7 +143,7 @@ def test_engines():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(u, v, lats, lons, settls_order=1, engine="dma")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FTLEPipeline(Grid(lats=lats, lons=lons), engine="dma")
+        FTLEPipeline(Grid(lats=lats, lons=lons), engine="dma", device="cpu")
     with pytest.raises(ValueError, match="engine="):
         TS.resolve_engine("pallas")
     *_, flag = _port(u, v, lats, lons, settls_order=1, engine="auto")
@@ -161,7 +161,7 @@ def test_pipeline_blockspec_matches_jax():
         jnp.asarray(u), jnp.asarray(v), DT,
         JaxGrid(lats=lats, lons=lons, cyclic_x=True), settls_order=1))
     model = FTLEPipeline(Grid(lats=lats, lons=lons, cyclic_x=True),
-                         settls_order=1, engine="blockspec")
+                         settls_order=1, engine="blockspec", device="cpu")
     got, flag = model(u, v, DT, return_overflow=True)
     assert int(flag) == 0
     got = got.numpy()

@@ -86,12 +86,13 @@ def test_truncate_matches_jax(nx):
 
 def test_truncate_host_array_takes_default_dtype():
     f = common_field(nt=1)
-    got = TS.truncate(f, COMMON_GRID_LATS, T)
+    got = TS.truncate(f, COMMON_GRID_LATS, T, device="cpu")
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy(), truncate64(f))
     torch.set_default_dtype(torch.float32)
     try:
-        assert TS.truncate(f, COMMON_GRID_LATS, T).dtype == torch.float32
+        assert TS.truncate(f, COMMON_GRID_LATS, T,
+                           device="cpu").dtype == torch.float32
     finally:
         torch.set_default_dtype(torch.float64)
 
