@@ -44,6 +44,7 @@ plain numpy/scipy statement of the reference semantics
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -326,6 +327,40 @@ def profile_field(run):
             "top": [(name[:60], round(ms, 3), n) for name, (ms, n) in top]}
 
 
+def profile_call(run, top=6, sites=3):
+    """``torch.profiler`` over one call of ``run``, with no warm-up, and
+    the input shapes recorded: (its result, the wall milliseconds under the
+    profiler, the device's busy milliseconds, the ``top`` host ops with the
+    most self time as (name, ms, count), and the ``sites`` single host
+    events with the most self time as (name, ms, input shapes))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, end = 0.0, float("-inf")
+    for t0_, t1 in sorted((e.time_range.start, e.time_range.end)
+                          for e in prof.events() if e.device_type == cuda):
+        busy += max(0.0, t1 - max(t0_, end))
+        end = max(end, t1)
+
+    ops = sorted((e for e in prof.key_averages() if e.device_type != cuda),
+                 key=lambda e: -e.self_cpu_time_total)[:top]
+    ops = [(e.key[:60], round(e.self_cpu_time_total / 1e3, 3), e.count)
+           for e in ops]
+    # the heaviest single host events, with their input shapes
+    host = sorted((e for e in prof.events() if e.device_type != cuda),
+                  key=lambda e: -e.self_cpu_time_total)[:sites]
+    where = [(e.name[:40], round(e.self_cpu_time_total / 1e3, 3),
+              [list(x) for x in (e.input_shapes or [])][:2]) for e in host]
+    return out, wall, busy / 1e3, ops, where
+
+
 def same_values(got, want):
     """(``torch.equal`` with equal NaN patterns, max |got - want| over the
     pairs finite in both, index of the first differing element or None)."""
@@ -392,19 +427,19 @@ def k1_loop_field(u, v, grid, state, dt, stages=None):
 
 
 def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold):
-    """Phase 3c: ``settls_step`` (every variant) against
-    ``settls_step_torch`` on the card, one flagship step per case, float32
-    and float64; then the fold-boundary grid, cyclic and not.  ``cases``:
-    (label, px, py numpy, step, order); ``fold``: (lats, lons, field).
-    Returns the largest max |kernel - plain| in float32 (0.0: identical)."""
+    """Phase 3c: ``settls_step`` against ``settls_step_torch`` on the card,
+    one flagship step per case, float32 and float64; then the fold-boundary
+    grid, cyclic and not.  ``cases``: (label, px, py numpy, step, order);
+    ``fold``: (lats, lons, field).  Returns the largest max |kernel -
+    plain| in float32 (0.0: identical)."""
     import torch
     from lagrangiancoherence_tpu_torch import Grid
     from lagrangiancoherence_tpu_torch.models.settls import grid_state
     from lagrangiancoherence_tpu_torch.ops.cuda_settls import (
-        VARIANTS, interleave, settls_step, settls_step_torch)
+        interleave, settls_step, settls_step_torch)
     from lagrangiancoherence_tpu_torch.ops.interp import prefilter
     log(f"== phase 3c: settls_step vs settls_step_torch on the card, bit "
-        f"for bit, variants {list(VARIANTS)} [{card}]")
+        f"for bit [{card}]")
     probe = np.array([-540.5, 2.0 ** 27, -2.0 ** 27, -180.0, 179.999,
                       -1e-30, 359.5, -359.5, 540.0, np.nan])
     for dtype, npt in ((torch.float32, np.float32),
@@ -420,22 +455,17 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold):
 
     worst = {}
 
-    def compare(label, name, want, run):
-        """One check per case over every variant; a variant that differs
-        is named with its max |d| and where (x, y) first differ."""
-        bad = []
-        for variant in VARIANTS:
-            got = run(variant)
-            torch.cuda.synchronize()
-            res = [same_values(g, w) for g, w in zip(got, want)]
-            err = max(r[1] for r in res)
-            worst[name] = max(worst.get(name, 0.0), err)
-            if not all(r[0] for r in res):
-                bad.append(f"{variant}: max|d|={err:.3e} at (x, y) "
-                           f"{[r[2] for r in res]}")
-        check(not bad, f"{name} {label}: end positions identical in "
-              f"{len(VARIANTS) - len(bad)} of {len(VARIANTS)} variants"
-              + "".join(f"; {b}" for b in bad))
+    def compare(label, name, want, got):
+        """One check per case; a case that differs is named with its max |d|
+        and where (x, y) first differ."""
+        torch.cuda.synchronize()
+        res = [same_values(g, w) for g, w in zip(got, want)]
+        err = max(r[1] for r in res)
+        worst[name] = max(worst.get(name, 0.0), err)
+        same = all(r[0] for r in res)
+        check(same, f"{name} {label}: end positions identical"
+              + ("" if same else f"; max|d|={err:.3e} at (x, y) "
+                 f"{[r[2] for r in res]}"))
 
     def stacks(u, v, order, state):
         T, ny, nx = u.shape
@@ -460,9 +490,8 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold):
                 kw = step_kw(grid, order=order)
                 want = settls_step_torch(W, CW, px, py, state["conv_x"], dt,
                                          t, **kw)
-                compare(label, name, want, lambda variant: settls_step(
-                    W, CI, px, py, state["conv_x"], dt, t, variant=variant,
-                    **kw))
+                compare(label, name, want, settls_step(
+                    u, v, CI, px, py, state["conv_x"], dt, t, **kw))
             del W, CW, CI
         lats, lons, f = fold
         fu = torch.tensor(f, dtype=dtype, device=dev)
@@ -478,9 +507,8 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold):
                                      **kw)
             compare(f"fold-boundary grid {len(lats)}x{len(lons)} from its "
                     f"nodes, cyclic={cyclic}", name, want,
-                    lambda variant: settls_step(W, CI, px, py,
-                                                state["conv_x"], dt, 0,
-                                                variant=variant, **kw))
+                    settls_step(uf, vf, CI, px, py, state["conv_x"], dt, 0,
+                                **kw))
     return worst["float32"]
 
 
@@ -842,22 +870,62 @@ def phase_area(dev, card, check, sync):
         ms[name] = (time.perf_counter() - t0) * 1e3
         return out
 
-    # 2. the windowed FTLE and the two-level "local" FTLE (non-cyclic)
+    # 2. the windowed FTLE and the two-level "local" FTLE (non-cyclic); the
+    # one-step run goes under torch.profiler, in its first call and in a
+    # second, to show where its time goes, and a third call runs without it
     sync()
     cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
     lcs = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)
     ftle = {}
-    for name, sel, kw in runs:
+
+    def call(name, sel, kw, profiled):
+        def run():
+            return lcs(u=U.isel(sel), v=V.isel(sel), verbose=False, **kw)
+
         with StageClock() as clock:
-            ftle[name] = timed(name, lambda sel=sel, kw=kw: lcs(
-                u=U.isel(sel), v=V.isel(sel), verbose=False, **kw))
-        log(f"{name} stages (ms): " + json.dumps(
-            {k: round(v, 3) for k, v in clock.ms.items()}) + f" [{card}]")
+            if profiled:
+                out, wall, busy, top, where = timed(
+                    name, lambda: profile_call(run))
+                extra = (f"; under torch.profiler: wall {wall:.3f} ms, "
+                         f"device busy {busy:.3f} ms, most host self time "
+                         f"(ms, calls) {json.dumps(top)}; heaviest events "
+                         f"(ms, shapes) {json.dumps(where)}")
+            else:
+                out, extra = timed(name, run), ""
+        log(f"{name}: {ms[name]:.3f} ms, stages (ms) " + json.dumps(
+            {k: round(v, 3) for k, v in clock.ms.items()}) + extra
+            + f" [{card}]")
+        return out
+
+    for name, sel, kw in runs:
+        ftle[name] = call(name, sel, kw, name == "ftle_local")
     launches, k1 = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
     # 3-hourly steps over the window, then the one local step
     expected = 2 * (AREA_WINDOW - 1) + 1
     check(launches == expected and k1 == 0, f"settls_step launches in the "
           f"two LCS runs {launches} == {expected}, K1 launches {k1} == 0")
+    _, sel, kw = runs[1]
+    call("ftle_local, second call", sel, kw, True)
+    call("ftle_local, third call", sel, kw, False)
+    # the one-step run's winds to the card as float32: converted on the
+    # host, as devices.on_device does, and on the card after the copy
+    a64 = np.ascontiguousarray(u[-2:])
+    copies = {"host": lambda: torch.as_tensor(a64, dtype=torch.float32,
+                                              device=dev),
+              "card": lambda: torch.as_tensor(a64, device=dev).to(
+                  torch.float32)}
+    for where, fn in copies.items():
+        trials = []
+        for _ in range(20):
+            timed("copy", fn)
+            trials.append(ms.pop("copy"))
+        log(f"(2, 221, 233) float64 winds to the card as float32, converted "
+            f"on the {where}: {np.median(trials):.3f} ms [{min(trials):.3f}, "
+            f"{max(trials):.3f}] (median [min, max] of 20; host threads "
+            f"{torch.get_num_threads()}, cores {len(os.sched_getaffinity(0))})"
+            f" [{card}]")
+    same = bool(torch.equal(copies["host"](), copies["card"]()))
+    check(same, f"float64 -> float32 on the card equals the host's: {same}")
     plain = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, kernel="torch",
                 device=dev)
     for name, sel, kw in runs:
@@ -1384,21 +1452,18 @@ def main() -> int:
         f"[{card}]")
     fused_s, k1_s = float(np.mean(fused_s)), float(np.mean(k1_s))
 
-    # one SETTLS step at the flagship positions (t = 0): the fused step in
-    # each variant, its plain version, and the per-group K1 loop's step
+    # one SETTLS step at the flagship positions (t = 0): the fused step, its
+    # plain version, and the per-group K1 loop's step
     from lagrangiancoherence_tpu_torch.ops.cuda_settls import (
-        DEFAULT_VARIANT, VARIANTS, interleave, settls_step_torch)
+        interleave, settls_step_torch)
     px = torch.tensor(pxn, device=dev)
     py = torch.tensor(pyn, device=dev)
     CI = interleave(CW[:, 0], CW[:, 1])
     ox, oy = torch.empty_like(px), torch.empty_like(py)
     skw = step_kw(grid)
-    times = {f"settls_step.{v}": event_ms(
-        lambda v=v: cuda_settls.settls_step(W, CI, px, py, state["conv_x"],
-                                            dt, 0, out=(ox, oy), variant=v,
-                                            **skw), 50)
-        for v in VARIANTS}
-    times["settls_step"] = times[f"settls_step.{DEFAULT_VARIANT}"]
+    times = {"settls_step": event_ms(
+        lambda: cuda_settls.settls_step(u32, v32, CI, px, py, state["conv_x"],
+                                        dt, 0, out=(ox, oy), **skw), 50)}
     plain_times = {"settls_step": event_ms(lambda: settls_step_torch(
         W, CW, px, py, state["conv_x"], dt, 0, **skw), 3)}
     times["K1 loop step"] = event_ms(lambda: settls_step_torch(
@@ -1467,20 +1532,19 @@ def main() -> int:
     per_field = {"settls_step": NT - 1, "spline_gather": k1_launches,
                  **window_launch}
     ms, plain_ms = {}, {}
-    for kname in ["settls_step"] + [f"settls_step.{v}" for v in VARIANTS] \
-            + ["K1 loop step", "spline_gather", *WINDOW_KERNELS]:
+    for kname in ["settls_step", "K1 loop step", "spline_gather",
+                  *WINDOW_KERNELS]:
         ms[kname], lo, hi = spread(times[kname])
         line = (f"{kname}: {ms[kname]:.4f} ms [{lo:.4f}, {hi:.4f}] (median "
                 f"[min, max] of {TRIALS} trials)")
         if kname in plain_times:
             plain_ms[kname], plo, phi = spread(plain_times[kname])
             line += f", plain {plain_ms[kname]:.4f} ms [{plo:.4f}, {phi:.4f}]"
-        bkey = kname.split(".")[0] if kname.startswith("settls") else kname
-        if bkey in bnd:
-            b, by, arith = bnd[bkey]
+        if kname in bnd:
+            b, by, arith = bnd[kname]
             line += (f"; bound {b:.5f} ms by {by} ({arith}); kernel/bound "
                      f"{ms[kname] / b:.2f}; launches per field "
-                     f"{per_field[bkey]}; library "
+                     f"{per_field[kname]}; library "
                      + (f"{library[kname]:.4f} ms" if kname in library
                         else "none"))
         log(f"  {line} [{card}]")

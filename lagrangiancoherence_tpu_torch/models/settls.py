@@ -234,30 +234,38 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
                          f"with resolve_kernel first)")
     if rebin not in ("sort", False):
         raise ValueError(f"rebin={rebin!r}: expected 'sort' or False")
+    engine = resolve_engine(engine)
     T, ny, nx = u.shape
     bounds = dict(y_min=grid.y_min, y_max=grid.y_max,
                   x_min=grid.x_min, x_max=grid.x_max)
-    # resident (T*2, ny, nx) raw stack: fields 2t, 2t+1 are (u, v) at level
-    # t, so the group at (t, t+1) is the contiguous window [2t, 2t + 4)
-    W = torch.stack([u, v], dim=1).reshape(T * 2, ny, nx)
-    if resolve_engine(engine) == "blockspec":
-        CW = torch.stack([cu, cv], dim=1).reshape(T * 2, ny, nx)
-        return _windowed_scan(W, CW, px0, py0, dt, conv_x, grid,
-                              settls_order=settls_order, order=interp_order,
-                              return_traj=return_traj, kernel=kernel,
-                              rebin=rebin, progress=progress)
-
-    # the direct route: one fused step per launch (kernel "cuda", reading
-    # the interleaved coefficients), or its plain version, one gather group
-    # at a time on the planar stack; each step writes its end positions
-    # once, into the next trajectory slot or a new pair (out of place)
-    if kernel == "cuda":
-        step, CW = settls_step, interleave(cu, cv)
-    else:
-        step = settls_step_torch
-        CW = torch.stack([cu, cv], dim=1).reshape(T * 2, ny, nx)
     kw = dict(settls_order=settls_order, order=interp_order,
               cyclic_x=grid.cyclic_x, **bounds)
+    if kernel == "cuda" and engine == "dma-all":
+        # the fused step reads the raw winds as they are and the
+        # coefficients interleaved
+        u, v, CI = u.contiguous(), v.contiguous(), interleave(cu, cv)
+
+        def step(px, py, t, out):
+            return settls_step(u, v, CI, px, py, conv_x, dt, t, out=out, **kw)
+    else:
+        # planar (T*2, ny, nx) stacks: fields 2t, 2t+1 are (u, v) at level
+        # t, so the group at (t, t+1) is the contiguous window [2t, 2t + 4)
+        W = torch.stack([u, v], dim=1).reshape(T * 2, ny, nx)
+        CW = torch.stack([cu, cv], dim=1).reshape(T * 2, ny, nx)
+        if engine == "blockspec":
+            return _windowed_scan(W, CW, px0, py0, dt, conv_x, grid,
+                                  settls_order=settls_order,
+                                  order=interp_order,
+                                  return_traj=return_traj, kernel=kernel,
+                                  rebin=rebin, progress=progress)
+
+        def step(px, py, t, out):
+            return settls_step_torch(W, CW, px, py, conv_x, dt, t, out=out,
+                                     **kw)
+
+    # the direct route: one fused step per launch, or its plain version,
+    # one gather group at a time; each step writes its end positions once,
+    # into the next trajectory slot or a new pair (out of place)
     if return_traj:
         traj_x = torch.empty((T, ny, nx), dtype=u.dtype, device=u.device)
         traj_y = torch.empty_like(traj_x)
@@ -267,7 +275,7 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
         if progress:
             logger.info("Propagating time index %d/%d", t + 1, T - 1)
         out = (traj_x[t + 1], traj_y[t + 1]) if return_traj else None
-        px, py = step(W, CW, px, py, conv_x, dt, t, out=out, **kw)
+        px, py = step(px, py, t, out)
     flag = torch.zeros((), dtype=torch.int32, device=u.device)
     if return_traj:
         return traj_x, traj_y, flag

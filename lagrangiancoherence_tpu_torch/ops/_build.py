@@ -46,9 +46,9 @@ _TILE_ARGTYPES = [_PTR] * 10 + [_INT] * 7 + [_LL] + [_INT] * 4 + [_PTR]
 _SUB_ARGTYPES = [_PTR] * 8 + [_INT] * 7 + [_LL] + [_INT] * 3 + [_PTR]
 # raw pack ys out flags overflow sel count, n_slots ny nx nf f0 wy bit, stream
 _POLE_ARGTYPES = [_PTR] * 8 + [_INT] * 4 + [_LL] + [_INT] * 2 + [_PTR]
-# raw coeffs px_in py_in px_out py_out conv_x dt, ny nx t order settls_order
-# cyclic variant, conv_y x_min x_max y_min y_max, stream
-_STEP_ARGTYPES = ([_PTR] * 8 + [_INT, _INT, _LL] + [_INT] * 4
+# u v coeffs px_in py_in px_out py_out conv_x dt, ny nx t order settls_order
+# cyclic, conv_y x_min x_max y_min y_max, stream
+_STEP_ARGTYPES = ([_PTR] * 9 + [_INT, _INT, _LL] + [_INT] * 3
                   + [ctypes.c_double] * 5 + [_PTR])
 SIGNATURES = {
     **{f"spline_gather_{t}": _GATHER_ARGTYPES for t in ("f32", "f64")},

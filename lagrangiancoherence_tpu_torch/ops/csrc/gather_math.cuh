@@ -120,21 +120,45 @@ struct InterleavedTaps {
   }
 };
 
+// Raw layouts: where gather_parcel's pole-home bilinear finds raw field f.
+//
+// PlanarRaw: (fields, ny, nx) planes `plane` elements apart, K1's stack.
+template <typename T>
+struct PlanarRaw {
+  const T* base;    // field 0
+  int64_t plane;
+  __device__ __forceinline__ const T* field(int f) const {
+    return base + f * plane;
+  }
+};
+
+// SplitRaw: separate (levels, ny, nx) u and v stacks; field 2l + c is
+// component c of level l, as in the interleaved coefficients.
+template <typename T>
+struct SplitRaw {
+  const T* u;       // level 0
+  const T* v;
+  int64_t plane;
+  __device__ __forceinline__ const T* field(int f) const {
+    return ((f & 1) ? v : u) + (f >> 1) * plane;
+  }
+};
+
 // One parcel's values of NF fields at position (px, py), the numerics of
 // ops/interp.py interp_at_parcels_multi op for op:
 //   * Q4 scaling `n * (p - min) / (max - min)`;
 //   * a pole-home row (`home < ORDER` or `home >= ny - ORDER`) takes the
-//     order-1 'constant' bilinear on the raw planes `raw + f * plane`: 0
+//     order-1 'constant' bilinear on the raw fields that `raw` locates: 0
 //     outside [0, n-1] or for NaN;
 //   * any other row takes the period-(n-1) wrap fold, mirror-edge taps and
 //     B-spline weights on the prefiltered coefficients that `taps` reads,
 //     y taps outer, x taps inner, weight wy[j] * wx[k] first; a NaN floor
 //     indexes tap 0 and a tap outside the field reads NaN, as `jnp.take`
 //     does in fill mode.
-template <typename T, int ORDER, int NF, class Taps>
+template <typename T, int ORDER, int NF, class Raw, class Taps>
 __device__ __forceinline__ void gather_parcel(
-    const T* __restrict__ raw, int64_t plane, const Taps& taps, T px, T py,
-    int home, int ny, int nx, T x_min, T x_den, T y_min, T y_den, T* acc) {
+    const Raw& raw, int64_t plane, const Taps& taps, T px, T py, int home,
+    int ny, int nx, T x_min, T x_den, T y_min, T y_den, T* acc) {
   constexpr int NT = ORDER + 1;
   const T xs = div_rn(mul_rn(static_cast<T>(nx), sub_rn(px, x_min)), x_den);
   const T ys = div_rn(mul_rn(static_cast<T>(ny), sub_rn(py, y_min)), y_den);
@@ -160,7 +184,7 @@ __device__ __forceinline__ void gather_parcel(
         static_cast<int64_t>(y0) * nx + static_cast<int64_t>(x0);
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
-      const T* r = raw + f * plane + base;
+      const T* r = raw.field(f) + base;
       acc[f] = add_rn(add_rn(add_rn(mul_rn(r[0], w00), mul_rn(r[1], w01)),
                              mul_rn(r[nx], w10)),
                       mul_rn(r[nx + 1], w11));

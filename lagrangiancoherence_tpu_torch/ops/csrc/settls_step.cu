@@ -31,21 +31,21 @@
 //   * the prefiltered coefficients come as (T, ny, nx, 2) interleaved
 //     (u, v) pairs, one 8-byte (16-byte in double) load per tap per level,
 //     where K1 made one load per field from planes 4.15 MB apart;
+//   * the raw winds, read only by the pole-home rows' bilinear, stay the
+//     caller's planar (T, ny, nx) u and v stacks: nothing is copied for
+//     them;
 //   * the SM's unified memory is carved out for L1 (no shared memory is
 //     used);
-//   * registers are bounded at 64 a thread (half occupancy, 1024 threads
-//     per SM; variants 0 and 1).  On an H100 (700 W), float32 order 3, the
-//     full-occupancy bound of 32 (variants 2 and 3) spilled ~270 bytes a
-//     thread and took 2.2x as long a step; leaving the count to the
-//     compiler (variants 4 and 5: 122 registers, a quarter occupancy) took
-//     1.3-1.4x as long.
-// Two block shapes: a 128-wide segment of one row (even variants), where
-// the pole-row branch is uniform across the block, and 32 x 4 tiles (odd
-// variants), whose warps are one row each, so the branch stays uniform per
-// warp and a block's taps span fewer cache lines.  At 64 registers the
-// tiles ran ~1.6% faster than the row segments in two calls on an H100, so
-// variant 1 is the default.  Nothing is staged in shared memory, and there
-// is no TMA or persistent grid.
+//   * blocks are 32 x 4 tiles: each warp is one row, so the pole-row branch
+//     is uniform per warp, and a block's taps span fewer cache lines than a
+//     128-wide row segment's;
+//   * registers are bounded at 64 a thread (8 blocks of 128, half
+//     occupancy).
+// On an H100 (700 W), float32 order 3, the 128-wide row segment was
+// 1.5-2.1% slower; a bound of 32 registers (full occupancy) spilled ~270
+// bytes a thread and took 2.2x as long; the compiler's own count (122
+// registers, a quarter occupancy) took 1.3-1.4x as long (PERF.md).  Nothing
+// is staged in shared memory, and there is no TMA or persistent grid.
 //
 // Numerics: every operation goes through a round-to-nearest intrinsic in
 // the order in which the plain step (ops/cuda_settls.py settls_step_torch)
@@ -53,7 +53,7 @@
 // follows torch.where's comparisons (a NaN latitude becomes y_min, a NaN
 // longitude stays NaN) and the wrap torch.remainder on floats (fmod, then
 // the sign fix-up), not a - b*floor(a/b).  Pole-home rows take the order-1
-// 'constant' bilinear on the raw planar fields at every gather of the step.
+// 'constant' bilinear on the raw fields at every gather of the step.
 // There is no window, so no overflow flag.
 #include "gather_math.cuh"
 
@@ -61,9 +61,14 @@ namespace {
 
 using namespace lcs;
 
+constexpr int kTileX = 32;      // parcels along a row: one warp
+constexpr int kTileY = 4;       // rows per block
+constexpr int kMinBlocks = 8;   // resident blocks per SM: 64 registers
+
 template <typename T>
 struct StepParams {
-  const T* raw;       // raw planar (u, v) fields from level t: 2t, 2t+1, ...
+  const T* u;         // raw (ny, nx) u planes from level t
+  const T* v;         // raw (ny, nx) v planes from level t
   const T* coeffs;    // interleaved (ny, nx, 2) coefficient levels from t
   const T* px_in;
   const T* py_in;
@@ -99,16 +104,15 @@ __device__ __forceinline__ void clamp_wrap(T& x, T& y, const StepParams<T>& p) {
   }
 }
 
-// MIN_BLOCKS resident 128-thread blocks per SM: 8 bounds a thread to 64
-// registers, 16 (full occupancy) to 32, 1 leaves the count to the compiler
-template <typename T, int ORDER, int BX, int BY, int MIN_BLOCKS>
-__global__ void __launch_bounds__(BX * BY, MIN_BLOCKS)
+template <typename T, int ORDER>
+__global__ void __launch_bounds__(kTileX * kTileY, kMinBlocks)
 settls_step_kernel(const StepParams<T> p) {
-  const int col = blockIdx.x * BX + threadIdx.x;
-  const int row = blockIdx.y * BY + threadIdx.y;
+  const int col = blockIdx.x * kTileX + threadIdx.x;
+  const int row = blockIdx.y * kTileY + threadIdx.y;
   if (col >= p.nx || row >= p.ny) return;
   const int64_t plane = static_cast<int64_t>(p.ny) * p.nx;
   const int64_t at = static_cast<int64_t>(row) * p.nx + col;
+  const SplitRaw<T> raw{p.u, p.v, plane};
   T x = p.px_in[at];
   T y = p.py_in[at];
   const T dt = __ldg(p.dt);
@@ -116,7 +120,7 @@ settls_step_kernel(const StepParams<T> p) {
 
   // Euler first guess (LagrangianCoherence LCS/trajectory.py:82-87)
   T w[2];
-  gather_parcel<T, ORDER, 2>(p.raw, plane,
+  gather_parcel<T, ORDER, 2>(raw, plane,
                              InterleavedTaps<T, 2>{p.coeffs, 2 * plane}, x, y,
                              row, p.ny, p.nx, p.x_min, p.x_den, p.y_min,
                              p.y_den, w);
@@ -133,7 +137,7 @@ settls_step_kernel(const StepParams<T> p) {
 #pragma unroll 1
   for (int it = 0; it < p.settls_order; ++it) {
     T d[4];
-    gather_parcel<T, ORDER, 4>(p.raw, plane,
+    gather_parcel<T, ORDER, 4>(raw, plane,
                                InterleavedTaps<T, 4>{p.coeffs, 2 * plane}, x,
                                y, row, p.ny, p.nx, p.x_min, p.x_den, p.y_min,
                                p.y_den, d);
@@ -145,9 +149,9 @@ settls_step_kernel(const StepParams<T> p) {
   p.py_out[at] = y;
 }
 
-template <typename T, int ORDER, int BX, int BY, int MIN_BLOCKS>
+template <typename T, int ORDER>
 cudaError_t launch(const StepParams<T>& p, cudaStream_t stream) {
-  auto kernel = settls_step_kernel<T, ORDER, BX, BY, MIN_BLOCKS>;
+  auto kernel = settls_step_kernel<T, ORDER>;
   static bool carved = false;   // once per instantiation
   if (!carved) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -156,21 +160,22 @@ cudaError_t launch(const StepParams<T>& p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     carved = true;
   }
-  const dim3 grid((p.nx + BX - 1) / BX, (p.ny + BY - 1) / BY);
-  kernel<<<grid, dim3(BX, BY), 0, stream>>>(p);
+  const dim3 grid((p.nx + kTileX - 1) / kTileX, (p.ny + kTileY - 1) / kTileY);
+  kernel<<<grid, dim3(kTileX, kTileY), 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* raw, const void* coeffs, const void* px_in,
-             const void* py_in, void* px_out, void* py_out,
-             const void* conv_x, const void* dt, int ny, int nx, long long t,
-             int order, int settls_order, int cyclic, int variant,
+int dispatch(const void* u, const void* v, const void* coeffs,
+             const void* px_in, const void* py_in, void* px_out,
+             void* py_out, const void* conv_x, const void* dt, int ny,
+             int nx, long long t, int order, int settls_order, int cyclic,
              double conv_y, double x_min, double x_max, double y_min,
              double y_max, void* stream) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   StepParams<T> p;
-  p.raw = static_cast<const T*>(raw) + 2 * t * plane;
+  p.u = static_cast<const T*>(u) + t * plane;
+  p.v = static_cast<const T*>(v) + t * plane;
   p.coeffs = static_cast<const T*>(coeffs) + 2 * t * plane;
   p.px_in = static_cast<const T*>(px_in);
   p.py_in = static_cast<const T*>(py_in);
@@ -192,53 +197,39 @@ int dispatch(const void* raw, const void* coeffs, const void* px_in,
   p.y_max = static_cast<T>(y_max);
   p.y_den = static_cast<T>(y_max - y_min);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SETTLS_STEP_CASE(O, V, BX, BY, MINB)                                \
-  if (order == O && variant == V)                                          \
-    return static_cast<int>(launch<T, O, BX, BY, MINB>(p, s));
-  SETTLS_STEP_CASE(3, 0, 128, 1, 8)
-  SETTLS_STEP_CASE(3, 1, 32, 4, 8)
-  SETTLS_STEP_CASE(3, 2, 128, 1, 16)
-  SETTLS_STEP_CASE(3, 3, 32, 4, 16)
-  SETTLS_STEP_CASE(3, 4, 128, 1, 1)
-  SETTLS_STEP_CASE(3, 5, 32, 4, 1)
-  SETTLS_STEP_CASE(1, 0, 128, 1, 8)
-  SETTLS_STEP_CASE(1, 1, 32, 4, 8)
-  SETTLS_STEP_CASE(1, 2, 128, 1, 16)
-  SETTLS_STEP_CASE(1, 3, 32, 4, 16)
-  SETTLS_STEP_CASE(1, 4, 128, 1, 1)
-  SETTLS_STEP_CASE(1, 5, 32, 4, 1)
-#undef SETTLS_STEP_CASE
+  if (order == 3) return static_cast<int>(launch<T, 3>(p, s));
+  if (order == 1) return static_cast<int>(launch<T, 1>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// C entry points, bound with ctypes by ops/cuda_settls.py.  `raw` is the
-// whole (2T, ny, nx) planar raw stack and `coeffs` the whole (T, ny, nx, 2)
-// interleaved coefficient stack; step t reads levels t and t+1.  Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int settls_step_f32(const void* raw, const void* coeffs,
-                               const void* px_in, const void* py_in,
-                               void* px_out, void* py_out,
+// C entry points, bound with ctypes by ops/cuda_settls.py.  `u` and `v` are
+// the whole (T, ny, nx) planar raw stacks and `coeffs` the whole
+// (T, ny, nx, 2) interleaved coefficient stack; step t reads levels t and
+// t+1.  Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int settls_step_f32(const void* u, const void* v,
+                               const void* coeffs, const void* px_in,
+                               const void* py_in, void* px_out, void* py_out,
                                const void* conv_x, const void* dt, int ny,
                                int nx, long long t, int order,
-                               int settls_order, int cyclic, int variant,
-                               double conv_y, double x_min, double x_max,
-                               double y_min, double y_max, void* stream) {
-  return dispatch<float>(raw, coeffs, px_in, py_in, px_out, py_out, conv_x,
-                         dt, ny, nx, t, order, settls_order, cyclic, variant,
-                         conv_y, x_min, x_max, y_min, y_max, stream);
+                               int settls_order, int cyclic, double conv_y,
+                               double x_min, double x_max, double y_min,
+                               double y_max, void* stream) {
+  return dispatch<float>(u, v, coeffs, px_in, py_in, px_out, py_out, conv_x,
+                         dt, ny, nx, t, order, settls_order, cyclic, conv_y,
+                         x_min, x_max, y_min, y_max, stream);
 }
 
-extern "C" int settls_step_f64(const void* raw, const void* coeffs,
-                               const void* px_in, const void* py_in,
-                               void* px_out, void* py_out,
+extern "C" int settls_step_f64(const void* u, const void* v,
+                               const void* coeffs, const void* px_in,
+                               const void* py_in, void* px_out, void* py_out,
                                const void* conv_x, const void* dt, int ny,
                                int nx, long long t, int order,
-                               int settls_order, int cyclic, int variant,
-                               double conv_y, double x_min, double x_max,
-                               double y_min, double y_max, void* stream) {
-  return dispatch<double>(raw, coeffs, px_in, py_in, px_out, py_out, conv_x,
-                          dt, ny, nx, t, order, settls_order, cyclic, variant,
-                          conv_y, x_min, x_max, y_min, y_max, stream);
+                               int settls_order, int cyclic, double conv_y,
+                               double x_min, double x_max, double y_min,
+                               double y_max, void* stream) {
+  return dispatch<double>(u, v, coeffs, px_in, py_in, px_out, py_out, conv_x,
+                          dt, ny, nx, t, order, settls_order, cyclic, conv_y,
+                          x_min, x_max, y_min, y_max, stream);
 }

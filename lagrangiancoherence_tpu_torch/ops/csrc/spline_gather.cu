@@ -50,9 +50,10 @@ spline_gather_kernel(const T* __restrict__ raw, const T* __restrict__ coeffs,
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t out_plane = static_cast<int64_t>(rows) * cols;
   T acc[NF];
-  gather_parcel<T, ORDER, NF>(raw, plane, PlanarTaps<T, NF>{coeffs, plane},
-                              px[p], py[p], row + row_offset, ny, nx, x_min,
-                              x_den, y_min, y_den, acc);
+  gather_parcel<T, ORDER, NF>(PlanarRaw<T>{raw, plane}, plane,
+                              PlanarTaps<T, NF>{coeffs, plane}, px[p], py[p],
+                              row + row_offset, ny, nx, x_min, x_den, y_min,
+                              y_den, acc);
 #pragma unroll
   for (int f = 0; f < NF; ++f) out[f * out_plane + p] = acc[f];
 }

@@ -9,8 +9,8 @@ Q5 clamp/wrap, then ``settls_order`` F=4 gathers at levels (t, t+1) with
 their updates and clamp/wraps, with the position in registers, and writes
 the end position once.  It reads the prefiltered coefficients as a
 (T, ny, nx, 2) interleaved (u, v) stack (``interleave``), one 2-vector load
-per tap per level; the raw winds, read only by the pole-home rows, stay a
-planar (2T, ny, nx) stack.
+per tap per level; the raw winds, read only by the pole-home rows, are the
+caller's (T, ny, nx) ``u`` and ``v``, not copied.
 
 ``settls_step_torch`` is its plain version: the per-group loop body of the
 SETTLS scan, with the gather taken as an argument (the plain
@@ -27,19 +27,12 @@ import torch
 from ..grid import EARTH_RADIUS
 from .interp import interp_at_parcels_multi
 
-__all__ = ["CONV_Y", "LAUNCHES", "VARIANTS", "clamp_wrap", "euler_guess",
-           "interleave", "settls_correction", "settls_step",
-           "settls_step_torch"]
+__all__ = ["CONV_Y", "LAUNCHES", "clamp_wrap", "euler_guess", "interleave",
+           "settls_correction", "settls_step", "settls_step_torch"]
 
 LAUNCHES = 0
 CONV_Y = 180.0 / (EARTH_RADIUS * np.pi)    # m/s -> deg/s of latitude
 _ENTRY = {torch.float32: "settls_step_f32", torch.float64: "settls_step_f64"}
-# the kernel's block shape (a 128-wide row segment or 32 x 4 parcels) and
-# registers a thread (64; ".r32": 32, full occupancy; ".rfree": the
-# compiler's count), csrc/settls_step.cu
-VARIANTS = {"row128": 0, "tile32x4": 1, "row128.r32": 2, "tile32x4.r32": 3,
-            "row128.rfree": 4, "tile32x4.rfree": 5}
-DEFAULT_VARIANT = "tile32x4"
 
 
 def clamp_wrap(px, py, *, y_min, y_max, x_min, x_max, cyclic_x):
@@ -118,28 +111,26 @@ def settls_step_torch(fields, coeffs, px, py, conv_x, dt, t: int, *,
     return out
 
 
-def settls_step(fields, coeffs, px, py, conv_x, dt, t: int, *,
+def settls_step(u, v, coeffs, px, py, conv_x, dt, t: int, *,
                 settls_order: int, order: int, x_min, x_max, y_min, y_max,
-                cyclic_x: bool, out=None, variant: str = DEFAULT_VARIANT):
+                cyclic_x: bool, out=None):
     """One SETTLS step of every parcel in one kernel launch.
 
-    ``fields``: the raw planar stack ((2T, ny, nx) or (T, 2, ny, nx));
-    ``coeffs``: the (T, ny, nx, 2) interleaved coefficient stack
-    (``interleave``); the rest as ``settls_step_torch``.  ``out``: a
-    (px, py) pair to write the end positions into — it may be (``px``,
-    ``py``) themselves (each parcel reads and writes only its own
-    position); by default a new pair.  ``variant``: the kernel's block shape
-    and register bound (``VARIANTS``).
+    ``u``/``v``: the (T, ny, nx) raw winds; ``coeffs``: the (T, ny, nx, 2)
+    interleaved coefficient stack (``interleave``); the rest as
+    ``settls_step_torch``.  ``out``: a (px, py) pair to write the end
+    positions into — it may be (``px``, ``py``) themselves (each parcel
+    reads and writes only its own position); by default a new pair.
     """
     global LAUNCHES
     kw = dict(settls_order=settls_order, order=order, x_min=x_min,
               x_max=x_max, y_min=y_min, y_max=y_max, cyclic_x=cyclic_x)
-    tensors = (fields, coeffs, px, py, conv_x, dt) + tuple(out or ())
+    tensors = (u, v, coeffs, px, py, conv_x, dt) + tuple(out or ())
     devices = {a.device for a in tensors}
     if devices == {torch.device("cpu")}:
         ny, nx = coeffs.shape[1:3]
         planar = coeffs[t:t + 2].permute(0, 3, 1, 2).reshape(4, ny, nx)
-        raw = fields.reshape(-1, ny, nx)[2 * t:2 * t + 4]
+        raw = torch.stack([u[t:t + 2], v[t:t + 2]], dim=1).reshape(4, ny, nx)
         return settls_step_torch(raw, planar, px, py, conv_x, dt, 0,
                                  out=out, **kw)
 
@@ -157,9 +148,10 @@ def settls_step(fields, coeffs, px, py, conv_x, dt, t: int, *,
         raise ValueError(f"settls_step: coeffs must be (T, ny, nx, 2), got "
                          f"{tuple(coeffs.shape)}")
     levels, ny, nx = coeffs.shape[:3]
-    if fields.numel() != coeffs.numel() or fields.shape[-2:] != (ny, nx):
-        raise ValueError(f"settls_step: fields {tuple(fields.shape)} do not "
-                         f"match coeffs {tuple(coeffs.shape)}")
+    if u.shape != (levels, ny, nx) or v.shape != u.shape:
+        raise ValueError(f"settls_step: winds {tuple(u.shape)}/"
+                         f"{tuple(v.shape)} do not match coeffs "
+                         f"{tuple(coeffs.shape)}")
     out = (torch.empty_like(px), torch.empty_like(py)) if out is None \
         else tuple(out)
     if any(a.shape != (ny, nx) for a in (px, py) + out):
@@ -181,11 +173,11 @@ def settls_step(fields, coeffs, px, py, conv_x, dt, t: int, *,
 
     from ._build import load_library
     fn = getattr(load_library(), _ENTRY[px.dtype])
-    rc = fn(fields.data_ptr(), coeffs.data_ptr(), px.data_ptr(),
+    rc = fn(u.data_ptr(), v.data_ptr(), coeffs.data_ptr(), px.data_ptr(),
             py.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             conv_x.data_ptr(), dt.data_ptr(), ny, nx, t, order, settls_order,
-            int(bool(cyclic_x)), VARIANTS[variant], CONV_Y, float(x_min),
-            float(x_max), float(y_min), float(y_max),
+            int(bool(cyclic_x)), CONV_Y, float(x_min), float(x_max),
+            float(y_min), float(y_max),
             torch.cuda.current_stream(px.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"settls_step launch failed: CUDA error {rc}")

@@ -161,7 +161,8 @@ def test_wrapper_and_scan_on_cpu_tensors_take_the_plain_step(dtype, order,
     CI = interleave(cu, cv)
     px, py = px0.clone(), py0.clone()
     for t in range(NT - 1):
-        out = settls_step(W, CI, px, py, conv_x, dt, t, out=(px, py), **kw)
+        out = settls_step(tu, tv, CI, px, py, conv_x, dt, t, out=(px, py),
+                          **kw)
         assert out[0] is px and out[1] is py
         _assert_bit_equal((px, py), want[t + 1])
     scan = dict(settls_order=2, interp_order=order, kernel="torch")
@@ -189,12 +190,14 @@ def test_interleaved_stack_layout():
 
 
 def test_wrapper_refuses_mixed_devices_and_cuda_on_cpu():
-    grid, *_, W, CW, px0, py0, dt, conv_x = _setup(True, 3, torch.float64)
+    grid, tu, tv, cu, cv, _, _, px0, py0, dt, conv_x = _setup(
+        True, 3, torch.float64)
     kw = dict(settls_order=1, order=3, x_min=grid.x_min, x_max=grid.x_max,
               y_min=grid.y_min, y_max=grid.y_max, cyclic_x=True)
     meta = px0.to("meta")
     with pytest.raises(ValueError, match="one CUDA device"):
-        settls_step(W, CW, meta, py0, conv_x, dt, 0, **kw)
+        settls_step(tu, tv, interleave(cu, cv), meta, py0, conv_x, dt, 0,
+                    **kw)
     with pytest.raises(ValueError, match="CUDA tensors"):
         TS.resolve_kernel("cuda", "cpu", 3)
     assert TS.resolve_kernel("auto", "cpu", 3) == "torch"
