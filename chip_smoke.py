@@ -6,17 +6,20 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
 
 It builds the port's CUDA kernels from the sources in the checkout (the
 fused SETTLS step ``settls_step``; K1 ``spline_gather``; K2
-``tile_window_gather``, K3 ``sub_window_gather`` and K4
-``pole_window_gather``), holds each against its plain PyTorch version on the
-card (the fused step bit for bit), drives the flagship FTLE pipeline
-(1440x721 parcels, 33 time levels, SETTLS order 4, float32) through both
-gather routes — ``engine="auto"`` (one ``settls_step`` launch per step) and
-``engine="blockspec"`` (K2-K4) — and through the per-group K1 loop that the
-fused step replaced, checks the float32 pipelines against a scipy oracle,
-times the kernels beside their bounds (the least time the card could take
-for the same work), their plain versions and, where one exists, one PyTorch
-call computing the same function, times the pipelines, and profiles one
-field of each route (device busy time, kernels per field, idle share).  Then
+``tile_window_gather``, K3 ``sub_window_gather`` and the one-launch pole
+ladder ``pole_ladder_gather``), holds each against its plain PyTorch version
+on the card (the fused step and the ladder bit for bit), drives the flagship
+FTLE pipeline (1440x721 parcels, 33 time levels, SETTLS order 4, float32)
+through both gather routes — ``engine="auto"`` (one ``settls_step`` launch
+per step) and ``engine="blockspec"`` (K2, K3 and the ladder) — and through
+the per-group K1 loop that the fused step replaced, checks the float32
+pipelines against a scipy oracle, times the kernels beside their bounds (the
+least time the card could take for the same work), their plain versions and,
+where one exists, one PyTorch call computing the same function — each kernel
+with its device time per launch under ``torch.profiler`` and the cost of an
+empty launch through the same wrapper path beside its CUDA-event time —
+times the pipelines, and profiles one field of each route (device busy time,
+kernels per field, idle share).  Then
 it drives the user-facing paths through the fused step: phase 8 runs
 ``LCS(isglobal=True, truncation=20)`` (the CLI's defaults) on the flagship
 winds — regrid to the common 0.5-degree grid, T20 truncation, SETTLS-4, the
@@ -29,13 +32,20 @@ with a 3-hourly resample, ``threshold_local``, the Hessian ridges,
 same call in float64 on the CPU.  Each phase prints its results; the line
 before the last is the kernel record ``{"kernels": [{"name", "route",
 "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-"bound_ms", "bound_by", "library_ms"}]}`` (times: medians of CUDA-event
-trials; ``settls_step``'s launches summed over phases 4, 8 and 8b, K1's from
-the per-group loop of phase 4, K2-K4's from phase 4b, each counted from 0)
+"bound_ms", "bound_by", "library_ms", "device_us_per_launch",
+"empty_launch_us"}]}`` (one entry per TPU kernel replaced; times: medians of
+CUDA-event trials; ``empty_launch_us``: an empty launch through the pole
+ladder's wrapper path in the same run;
+``settls_step``'s launches summed over phases 4, 8 and 8b, K1's from the
+per-group loop of phase 4, K2's, K3's and the ladder's from phase 4b, each
+counted from 0)
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero, as does a machine without a CUDA device or a directory
 without the package.  ``--quick`` stops after phase 3c (build, and the
-kernels against their plain versions) and prints no result line.
+kernels against their plain versions) and prints no result line.  ``--area``
+runs phase 8b alone, twice in one process, and prints no result line: its
+second pass shows the workflow's times without the first-use costs (kernel
+build, CUDA module loading, FFT plans) that the first pass of a process pays.
 
 This script imports neither JAX nor the JAX package: the oracle below is a
 plain numpy/scipy statement of the reference semantics
@@ -71,13 +81,19 @@ WINDOW_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/window_gather.cu"
 _PALLAS = "lagrangiancoherence_tpu/ops/pallas_interp.py"
 # the window kernels by name and mode, and the Pallas kernel each replaces
 WINDOW_KERNELS = {
-    "tile_window_gather.dense": f"{_PALLAS}:715",    # _grid_kernel
-    "tile_window_gather.list": f"{_PALLAS}:772",     # _list_kernel
-    "sub_window_gather": f"{_PALLAS}:648",           # _sub_grid_kernel
-    "pole_window_gather.dense": f"{_PALLAS}:738",    # _pole_grid_kernel
-    "pole_window_gather.list": f"{_PALLAS}:755",     # _pole_list_kernel
+    "tile_window_gather.dense": [f"{_PALLAS}:715"],  # _grid_kernel
+    "tile_window_gather.list": [f"{_PALLAS}:772"],   # _list_kernel
+    "sub_window_gather": [f"{_PALLAS}:648"],         # _sub_grid_kernel
+    # _pole_grid_kernel and _pole_list_kernel: the ladder in one launch
+    "pole_ladder_gather": [f"{_PALLAS}:738", f"{_PALLAS}:755"],
 }
+# launches per flagship field on the blockspec route: 32 steps of 5 gather
+# groups, the ladder's 6 list tiers in each
+BLOCKSPEC_LAUNCHES = {"tile_window_gather.dense": 160,
+                      "tile_window_gather.list": 960,
+                      "sub_window_gather": 160, "pole_ladder_gather": 160}
 FORCED_POLE_LADDER = (8, 16, 288)   # slots escalate to levels 2 and 3
+CLAMPED_POLE_LADDER = (8, 8, 8)     # the last level clamps: bit 4
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s
 # and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -181,11 +197,13 @@ def window_launches(W, CW, px, py, *, f0, nf, wy, bounds, ladder,
                     order=ORDER, retry_tiles=256, pole_ladder=None):
     """Every window-kernel launch of one ``engine="blockspec"`` gather group
     at positions ``px``/``py`` with escalation ladder ``ladder``
-    (``window_interp.spline_launches``), plus the pole launches of the
-    group's pole-home rows, sorted as the hoisted pole loop sorts them.
+    (``window_interp.spline_launches``), plus the pole ladder's launch on the
+    group's pole-home rows, sorted as the hoisted pole loop sorts them (its
+    flags are the slots' levels).
     Returns ([(name, out shape, n flags, run)], counts),
     where ``run(kind, out, flags, overflow)`` launches the kernel (kind
-    "cuda") or its plain version (kind "plain") on the same inputs."""
+    "cuda"), its plain version (kind "plain") or, for the pole ladder, the
+    empty launch (kind "empty") on the same inputs."""
     import torch
     from lagrangiancoherence_tpu_torch.ops import pole as PL
     from lagrangiancoherence_tpu_torch.ops import window_interp as WI
@@ -193,18 +211,22 @@ def window_launches(W, CW, px, py, *, f0, nf, wy, bounds, ladder,
     ny, nx = px.shape
     fns = {kind: WI.kernel_functions(k) for kind, k in (("cuda", "cuda"),
                                                  ("plain", "torch"))}
+    from lagrangiancoherence_tpu_torch.ops import cuda_window
+    fns["empty"] = {"pole_ladder_gather": cuda_window.empty_launch}
     rt = route_tiles(px, py, ny=ny, nx=nx, order=order, wy=wy,
                      retry_tiles=retry_tiles, ladder=ladder, **bounds)
     rx, ry = PL.pole_rows(px, order), PL.pole_rows(py, order)
     perm, _ = PL.pole_sort_state(rx, ry, order=order, ny=ny, nx=nx, **bounds)
     geom = dict(order=order, nx=nx)
     pxf = PL.pole_apply_perm(rx, perm, **geom)
-    poles, pr = WI.pole_launches(
-        W.reshape(-1, ny, nx), pxf, PL.pole_apply_perm(ry, perm, **geom),
-        torch.ones_like(pxf), f0=f0, nf=nf, bounds=bounds,
-        ladder=pole_ladder or PL.POLE_LADDER)
+    pole_ladder = tuple(pole_ladder or PL.POLE_LADDER)
+    pack = PL.pole_pack(pxf, PL.pole_apply_perm(ry, perm, **geom),
+                        torch.ones_like(pxf), ny=ny, nx=nx, **bounds)
+    poles = [WI.pole_launch(W.reshape(-1, ny, nx), pack, f0=f0, nf=nf,
+                            ladder=pole_ladder)]
+    pr = PL.pole_levels(PL.pole_keys(pack, ny), ny=ny, ladder=pole_ladder)
     shapes = {"spline": (nf, rt.gy * 8, rt.gx * 128),
-              "pole": (nf, pr.ys[0].shape[0] * 8, 128)}
+              "pole": (nf, poles[0].n_flags * 8, 128)}
     runs = []
     for part, launches in (("spline", WI.spline_launches(
             rt, CW.reshape(-1, ny, nx), f0=f0, nf=nf, order=order, wy=wy)),
@@ -217,8 +239,7 @@ def window_launches(W, CW, px, py, *, f0, nf, wy, bounds, ladder,
     counts = {"tiers": [int(t.count) for t in rt.tiers],
               "tierA": int(rt.liveA.sum()),
               "sub": int(rt.liveS.sum()) if rt.liveS is not None else 0,
-              "pole_levels": [int(pr.fit1.sum())]
-              + [int(pr.want[lvl].sum()) for lvl in (1, 2)]}
+              "pole_levels": [int((pr.level == k).sum()) for k in range(3)]}
     return runs, counts
 
 
@@ -270,6 +291,34 @@ def event_ms(fn, n):
     return out
 
 
+def device_us(fn, n, match):
+    """``torch.profiler`` over ``n`` calls of ``fn`` (after a warm-up): the
+    mean device microseconds of one launch of the kernels whose name
+    contains ``match``, and how many of them one call launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = [e.time_range.end - e.time_range.start for e in cuda
+          if match in e.name]
+    if not us or len(us) % n:
+        names = {}
+        for e in cuda:
+            names[e.name[:50]] = names.get(e.name[:50], 0) + 1
+        log(f"  device_us: {len(us)} events named *{match}* in {n} calls; "
+            f"device events seen: {json.dumps(names)}")
+    if not us:
+        raise RuntimeError(f"torch.profiler saw no kernel named *{match}*")
+    return float(np.mean(us)), len(us) / n
+
+
 def spread(ms):
     """(median, min, max) of a list of trial times."""
     return float(np.median(ms)), min(ms), max(ms)
@@ -277,10 +326,13 @@ def spread(ms):
 
 def time_launches(runs, dtype, device, reps, plain_reps):
     """Trial times (``event_ms``) of one gather group's launches of each
-    kernel name, for the kernels and for the plain versions."""
+    kernel name, for the kernels and for the plain versions, and under
+    ``name, "device"`` the kernels' ``device_us``."""
     import torch
     bufs = [(name, torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros((n,), dtype=torch.int32, device=device),
+             # the main path asks the ladder for no levels
+             None if name == "pole_ladder_gather" else torch.zeros(
+                 (n,), dtype=torch.int32, device=device),
              torch.zeros((1,), dtype=torch.int32, device=device), run)
             for name, shape, n, run in runs]
     times = {}
@@ -292,7 +344,24 @@ def time_launches(runs, dtype, device, reps, plain_reps):
                 for _, o, f, v, run in mine:
                     run(kind, o, f, v)
             times[name, kind] = event_ms(group, n)
+            if kind == "cuda":
+                times[name, "device"] = device_us(
+                    group, n, name.split(".")[0].replace("_gather", "_kernel"))
     return times
+
+
+def host_us(fn, n=1000):
+    """Host microseconds per call of ``fn`` over ``n`` calls that nothing
+    synchronises: what issuing the call costs the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def profile_field(run):
@@ -1093,10 +1162,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("tf32 now: matmul=False cudnn=False")
     dev = torch.device("cuda", 0)
+    if "--area" in sys.argv[1:]:
+        for _ in range(2):
+            phase_area(dev, card, check, torch.cuda.synchronize)
+        log(f"chip_smoke --area: {len(failures)} check(s) failed")
+        return 1 if failures else 0
 
     # -- 2. build ------------------------------------------------------------
-    log(f"== phase 2: build settls_step and K1-K4 (one nvcc per source, in "
-        f"parallel) [{card}]")
+    log(f"== phase 2: build settls_step, K1-K3 and the pole ladder (one nvcc "
+        f"per source, in parallel) [{card}]")
     lib_path, build_s, build_log = _build.build()
     _build.load_library()
     log(f"built {lib_path.name} in {build_s:.2f} s")
@@ -1222,9 +1296,9 @@ def main() -> int:
         log(f"chip_smoke --quick: {len(failures)} check(s) failed")
         return 1 if failures else 0
 
-    # -- 3b. K2, K3, K4 against their plain versions --------------------------
-    log(f"== phase 3b: K2/K3/K4 vs plain on the card (flagship grid) "
-        f"[{card}]")
+    # -- 3b. K2, K3 and the pole ladder against their plain versions ----------
+    log(f"== phase 3b: K2, K3 and the pole ladder vs plain on the card "
+        f"(flagship grid) [{card}]")
     # the flagship cases are laid out as the main path lays them out:
     # polar bands sort-binned, gathered with the sort ladder
     bands = _sort_bands(grid, ORDER)
@@ -1253,6 +1327,9 @@ def main() -> int:
                   dict(f0=0, nf=2, wy=16, retry_tiles=0, **dfl)),
                  (f"pole_ladder={FORCED_POLE_LADDER}", pxs, pys,
                   dict(f0=0, nf=4, wy=32, pole_ladder=FORCED_POLE_LADDER,
+                       **dfl)),
+                 (f"pole_ladder={CLAMPED_POLE_LADDER}", pxs, pys,
+                  dict(f0=0, nf=2, wy=32, pole_ladder=CLAMPED_POLE_LADDER,
                        **dfl))]
         for label, cx, cy, kw in cases:
             px = torch.tensor(cx, dtype=dtype, device=dev)
@@ -1266,9 +1343,11 @@ def main() -> int:
                 f"{counts['sub']} ladder {counts['tiers']} pole levels "
                 f"{counts['pole_levels']}")
             for kname, (err, eq, ovf, nflag) in res.items():
-                check(err <= tol and eq,
+                # the ladder is held to bit identity; its flags are levels
+                ktol = 0.0 if kname == "pole_ladder_gather" else tol
+                check(err <= ktol and eq,
                       f"{name} {label} {kname}: max|kernel-plain|={err:.3e} "
-                      f"(<= {tol:g}) flags equal={eq} overflow=0x{ovf:x} "
+                      f"(<= {ktol:g}) flags equal={eq} overflow=0x{ovf:x} "
                       f"slots flagged={nflag} bit-identical={err == 0.0}")
                 window_err[kname] = max(window_err.get(kname, 0.0), err) \
                     if name == "float32" else window_err.get(kname, 0.0)
@@ -1281,10 +1360,14 @@ def main() -> int:
                 ovf = res["tile_window_gather.dense"][2]
                 check(ovf & (1 << 2) != 0,
                       f"{name} shear retry=0 wy=16 raises bit 2: 0x{ovf:x}")
-            if label.startswith("pole_ladder"):
+            if label.startswith(f"pole_ladder={FORCED_POLE_LADDER}"):
                 check(all(c > 0 for c in counts["pole_levels"][1:]),
                       f"{name} forced pole ladder reaches levels 2 and 3: "
                       f"{counts['pole_levels']}")
+            if label.startswith(f"pole_ladder={CLAMPED_POLE_LADDER}"):
+                ovf = res["pole_ladder_gather"][2]
+                check(ovf == 1 << 4, f"{name} clamped pole ladder raises "
+                      f"bit 4 only: 0x{ovf:x}")
         del Wd, CWd
 
     # -- 4. main path ---------------------------------------------------------
@@ -1297,6 +1380,7 @@ def main() -> int:
     expected = NT - 1
     torch.cuda.synchronize()
     cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+    cuda_window.reset_launches()
     t0 = time.perf_counter()
     norm, overflow = ftle_pipeline(u32, v32, DT, grid,
                                    settls_order=SETTLS_ORDER,
@@ -1305,12 +1389,14 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches, k1_on_main = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
+    window_on_main = sum(cuda_window.LAUNCHES.values())
     finite = bool(torch.isfinite(norm[2:-2]).all())
     log(f"first call {first_s:.3f} s; FTLE norm range "
         f"[{float(norm[2:-2].min()):.4g}, {float(norm[2:-2].max()):.4g}]")
-    check(launches == expected and k1_on_main == 0,
+    check(launches == expected and k1_on_main == 0 and window_on_main == 0,
           f"settls_step launches {launches} == {expected}, K1 launches "
-          f"{k1_on_main} == 0")
+          f"{k1_on_main} == 0, window and pole ladder launches "
+          f"{window_on_main} == 0")
     check(int(overflow) == 0, f"overflow {int(overflow)} == 0")
     check(norm.shape == (ny, nx) and finite,
           f"shape {tuple(norm.shape)}, rows [2:-2] finite={finite}")
@@ -1329,7 +1415,7 @@ def main() -> int:
 
     # -- 4b. the blockspec route ----------------------------------------------
     log("== phase 4b: flagship ftle_pipeline(engine='blockspec') through "
-        f"K2/K3/K4 [{card}]")
+        f"K2, K3 and the pole ladder [{card}]")
     torch.cuda.synchronize()
     cuda_interp.LAUNCHES = cuda_settls.LAUNCHES = 0
     cuda_window.reset_launches()
@@ -1347,9 +1433,12 @@ def main() -> int:
         f"K1 and settls_step {other_on_b}")
     check(int(overflow_b) == 0, f"blockspec overflow 0x{int(overflow_b):x} "
           f"== 0")
-    check(all(n > 0 for n in window_launch.values()) and other_on_b == 0,
-          f"K2/K3/K4 launched on the blockspec route, K1 and settls_step "
-          f"{other_on_b} == 0")
+    on_route = {k: window_launch[k] for k in WINDOW_KERNELS}
+    off_route = sum(window_launch.values()) - sum(on_route.values())
+    check(on_route == BLOCKSPEC_LAUNCHES and off_route + other_on_b == 0,
+          f"blockspec launches {json.dumps(on_route)} == "
+          f"{json.dumps(BLOCKSPEC_LAUNCHES)}; other window kernels "
+          f"{off_route}, K1 and settls_step {other_on_b} == 0")
     same, dnorm, _ = same_values(norm_b, norm)
     check(same, f"blockspec FTLE vs the fused step's FTLE: identical={same}, "
           f"max|d|={dnorm:.3e}")
@@ -1464,15 +1553,24 @@ def main() -> int:
     times = {"settls_step": event_ms(
         lambda: cuda_settls.settls_step(u32, v32, CI, px, py, state["conv_x"],
                                         dt, 0, out=(ox, oy), **skw), 50)}
+    dev_us = {"settls_step": device_us(
+        lambda: cuda_settls.settls_step(u32, v32, CI, px, py, state["conv_x"],
+                                        dt, 0, out=(ox, oy), **skw), 50,
+        "settls_step_kernel")}
     plain_times = {"settls_step": event_ms(lambda: settls_step_torch(
         W, CW, px, py, state["conv_x"], dt, 0, **skw), 3)}
     times["K1 loop step"] = event_ms(lambda: settls_step_torch(
         W, CW, px, py, state["conv_x"], dt, 0, gather=k1_gather, **skw), 20)
     del CI
     # F=4 gather groups at the flagship positions, as each route lays them
-    # out: K1 on the grid layout, K2-K4 sort-binned with the sort ladder
+    # out: K1 on the grid layout, K2, K3 and the pole ladder sort-binned with
+    # the sort ladder
     times["spline_gather"] = event_ms(lambda: cuda_interp.cuda_interp_multi(
         W, CW, px, py, f0=0, nf=4, order=ORDER, **bounds), 50)
+    dev_us["spline_gather"] = device_us(
+        lambda: cuda_interp.cuda_interp_multi(
+            W, CW, px, py, f0=0, nf=4, order=ORDER, **bounds), 50,
+        "spline_gather_kernel")
     plain_times["spline_gather"] = event_ms(lambda: interp_at_parcels_multi(
         W.reshape(-1, ny, nx)[:4], CW.reshape(-1, ny, nx)[:4], px, py,
         order=ORDER, **bounds), 5)
@@ -1483,7 +1581,7 @@ def main() -> int:
     for kname in WINDOW_KERNELS:
         times[kname] = window_ms[kname, "cuda"]
         plain_times[kname] = window_ms[kname, "plain"]
-
+        dev_us[kname] = window_ms[kname, "device"]
     # bounds: each input byte read once and each output byte written once,
     # and the operations, for one step (settls_step) or one F=4 group at
     # the layout each route gives it; window kernels count the parcels their
@@ -1496,38 +1594,72 @@ def main() -> int:
     routed = {"tile_window_gather.dense": wcounts["tierA"] * TILE,
               "tile_window_gather.list": sum(wcounts["tiers"]) * TILE,
               "sub_window_gather": wcounts["sub"] * TILE,
-              "pole_window_gather.dense": pole_p,
-              "pole_window_gather.list": min(
-                  sum(wcounts["pole_levels"][1:]) * TILE, pole_p)}
+              "pole_ladder_gather": pole_p}
     work = {"settls_step": (16 * n_all + 4 * plane + 16 * pole_p + 4 * ny,
                             n_all * step_ops(SETTLS_ORDER)),
             "spline_gather": (8 * n_all + 4 * plane + 16 * n_all,
                               n_all * gather_ops(4))}
     for kname, n in routed.items():
-        ops = n * (bilinear_ops(4) if kname.startswith("pole")
-                   else gather_ops(4))
-        work[kname] = (24 * n + 4 * plane * n / n_all + flags_b[kname], ops)
+        if kname == "pole_ladder_gather":
+            # the packed operand in and the four values out of every point
+            # of the padded slots, the raw rows in proportion to the real
+            # points, and the overflow word
+            slots = sum(wcounts["pole_levels"])
+            work[kname] = (32 * slots * TILE + 4 * plane * n / n_all + 4,
+                           n * bilinear_ops(4))
+        else:
+            work[kname] = (24 * n + 4 * plane * n / n_all + flags_b[kname],
+                           n * gather_ops(4))
     bnd = {k: bound(*w) for k, w in work.items()}
     log("  K1 F=2 group (not timed): " + bound(
         16 * n_all + 2 * plane, n_all * gather_ops(2))[2])
 
-    # one PyTorch call computing K4's function: grid_sample's bilinear with
-    # zero padding on the raw fields, at pole-home parcels (it differs from
-    # the order-1 'constant' mode only within one cell outside the field)
+    # one PyTorch call computing the pole ladder's function: grid_sample's
+    # bilinear with zero padding on the raw fields, at the same pole-home
+    # parcels (it differs from the order-1 'constant' mode only within one
+    # cell outside the field)
     pole_x = torch.cat([px[:ORDER], px[-ORDER:]]).reshape(-1)
     pole_y = torch.cat([py[:ORDER], py[-ORDER:]]).reshape(-1)
     raw4 = W.reshape(-1, ny, nx)[:4][None]
-    library = {}
-    for kname in ("pole_window_gather.dense", "pole_window_gather.list"):
-        n = max(routed[kname], 1)
-        xs = nx * (pole_x[:n] - grid.x_min) / (grid.x_max - grid.x_min)
-        ys = ny * (pole_y[:n] - grid.y_min) / (grid.y_max - grid.y_min)
-        g = torch.stack([2.0 * xs / (nx - 1) - 1.0, 2.0 * ys / (ny - 1) - 1.0],
-                        dim=-1).reshape(1, 1, n, 2)
-        library[kname] = spread(event_ms(
-            lambda g=g: torch.nn.functional.grid_sample(
-                raw4, g, mode="bilinear", padding_mode="zeros",
-                align_corners=True), 50))[0]
+    xs = nx * (pole_x - grid.x_min) / (grid.x_max - grid.x_min)
+    ys = ny * (pole_y - grid.y_min) / (grid.y_max - grid.y_min)
+    g = torch.stack([2.0 * xs / (nx - 1) - 1.0, 2.0 * ys / (ny - 1) - 1.0],
+                    dim=-1).reshape(1, 1, pole_p, 2)
+
+    def library_call():
+        return torch.nn.functional.grid_sample(
+            raw4, g, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+
+    # the ladder, an empty launch through its wrapper path and the library
+    # call in turns (A, B, C, C, B, A: the host's speed drifts within a
+    # call): CUDA-event trials pooled, and the host's cost of issuing each
+    _, lshape, _, lrun = next(r for r in runs if r[0] == "pole_ladder_gather")
+    l_out = torch.zeros(lshape, device=dev)
+    l_ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
+    turns = {"pole_ladder_gather": lambda: lrun("cuda", l_out, None, l_ovf),
+             "empty launch": lambda: lrun("empty", l_out, None, l_ovf),
+             "grid_sample": library_call}
+    turn_ms = {k: [] for k in turns}
+    turn_host = {k: [] for k in turns}
+    for k in [*turns, *reversed(turns)]:
+        turn_ms[k] += event_ms(turns[k], 50)
+        turn_host[k].append(host_us(turns[k]))
+    turn_dev = {"pole_ladder_gather": dev_us["pole_ladder_gather"],
+                "empty launch": device_us(turns["empty launch"], 50,
+                                          "empty_kernel"),
+                "grid_sample": device_us(library_call, 50, "")}
+    for k in turns:
+        med, lo, hi = spread(turn_ms[k])
+        log(f"  in turns, {k}: {med * 1e3:.2f} us [{lo * 1e3:.2f}, "
+            f"{hi * 1e3:.2f}] a call (CUDA events, median [min, max] of "
+            f"{len(turn_ms[k])} trials of 50); {turn_dev[k][0]:.2f} us on "
+            f"the device x {turn_dev[k][1]:g} kernels; host alone "
+            + " / ".join(f"{u:.2f}" for u in turn_host[k])
+            + f" us a call (1000 unsynchronised calls, twice) [{card}]")
+    times["pole_ladder_gather"] = turn_ms["pole_ladder_gather"]
+    library = {"pole_ladder_gather": spread(turn_ms["grid_sample"])[0]}
+    empty_us = spread(turn_ms["empty launch"])[0] * 1e3
 
     per_field = {"settls_step": NT - 1, "spline_gather": k1_launches,
                  **window_launch}
@@ -1536,10 +1668,15 @@ def main() -> int:
                   *WINDOW_KERNELS]:
         ms[kname], lo, hi = spread(times[kname])
         line = (f"{kname}: {ms[kname]:.4f} ms [{lo:.4f}, {hi:.4f}] (median "
-                f"[min, max] of {TRIALS} trials)")
+                f"[min, max] of {len(times[kname])} trials)")
         if kname in plain_times:
             plain_ms[kname], plo, phi = spread(plain_times[kname])
             line += f", plain {plain_ms[kname]:.4f} ms [{plo:.4f}, {phi:.4f}]"
+        if kname in dev_us:
+            us, per_call = dev_us[kname]
+            line += (f"; device {us:.2f} us a launch x {per_call:g} launches "
+                     f"= {us * per_call:.2f} us, host issue and gaps "
+                     f"{ms[kname] * 1e3 - us * per_call:.2f} us")
         if kname in bnd:
             b, by, arith = bnd[kname]
             line += (f"; bound {b:.5f} ms by {by} ({arith}); kernel/bound "
@@ -1625,7 +1762,9 @@ def main() -> int:
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms[name], "plain_ms": plain_ms[name],
                 "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
-                "library_ms": library.get(name)}
+                "library_ms": library.get(name),
+                "device_us_per_launch": dev_us[name][0],
+                "empty_launch_us": empty_us}
 
     log(json.dumps({"kernels": [
         record("settls_step", STEP_SOURCE, KERNEL_REPLACES, launches,
@@ -1634,7 +1773,8 @@ def main() -> int:
                gather_err["float32"])] + [
         record(kname, WINDOW_SOURCE, replaces, window_launch[kname],
                window_err[kname])
-        for kname, replaces in WINDOW_KERNELS.items()]}))
+        for kname, replaced in WINDOW_KERNELS.items()
+        for replaces in replaced]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

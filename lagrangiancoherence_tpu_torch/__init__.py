@@ -8,8 +8,8 @@ built with ``nvcc`` at first use on the GPU: the fused SETTLS step
 ``ops/cuda_settls.py``) on the default gather route; K1 ``spline_gather``
 (``ops/csrc/spline_gather.cu``, through ``ops/cuda_interp.py``), one gather
 group per launch; and K2 ``tile_window_gather``, K3 ``sub_window_gather``
-and K4 ``pole_window_gather`` (``ops/csrc/window_gather.cu``, through
-``ops/cuda_window.py``) on the ``engine="blockspec"`` route.  The entry
+and the pole ladder ``pole_ladder_gather`` (``ops/csrc/window_gather.cu``,
+through ``ops/cuda_window.py``) on the ``engine="blockspec"`` route.  The entry
 points compute on the card unless asked for the CPU (``devices.py``).
 
 Public API (lazy-imported to keep ``import lagrangiancoherence_tpu_torch``

@@ -25,8 +25,8 @@ Two gather routes, chosen by ``engine`` (JAX's ``pallas_engine``):
 * ``"auto"`` / ``"dma-all"``: the direct per-parcel gather, one fused
   step per launch (``ops/cuda_settls.py``: the whole step of a parcel in
   one thread, K1 redesigned), with no windows; the overflow flag stays 0;
-* ``"blockspec"``: the windowed gather (K2-K4, ``ops/window_interp.py``)
-  with JAX's scan structure around it (models/settls.py:92-272, 463-715):
+* ``"blockspec"``: the windowed gather (K2, K3 and the pole ladder,
+  ``ops/window_interp.py``) with JAX's scan structure around it (models/settls.py:92-272, 463-715):
   the polar bands are sort-binned into spatial-tile storage order every
   ``SORT_K`` steps, the gathers take the sort ladder, and the pole-home
   rows are sorted once per step and evaluated by a second, pole-only

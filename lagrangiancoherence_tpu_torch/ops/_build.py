@@ -44,8 +44,9 @@ _TILE_ARGTYPES = [_PTR] * 10 + [_INT] * 7 + [_LL] + [_INT] * 4 + [_PTR]
 # coeffs folds out flags overflow y0map x0q live, n_tiles ny nx ny_t nx_t
 # order nf f0 wy bit stage_bytes, stream
 _SUB_ARGTYPES = [_PTR] * 8 + [_INT] * 7 + [_LL] + [_INT] * 3 + [_PTR]
-# raw pack ys out flags overflow sel count, n_slots ny nx nf f0 wy bit, stream
-_POLE_ARGTYPES = [_PTR] * 8 + [_INT] * 4 + [_LL] + [_INT] * 2 + [_PTR]
+# raw pack out overflow levels, n_slots ny nx nf f0 ny_p wy1 wy2 wy3 bit,
+# stream (the empty launch takes and ignores the same)
+_LADDER_ARGTYPES = [_PTR] * 5 + [_INT] * 4 + [_LL] + [_INT] * 5 + [_PTR]
 # u v coeffs px_in py_in px_out py_out conv_x dt, ny nx t order settls_order
 # cyclic, conv_y x_min x_max y_min y_max, stream
 _STEP_ARGTYPES = ([_PTR] * 9 + [_INT, _INT, _LL] + [_INT] * 3
@@ -55,7 +56,8 @@ SIGNATURES = {
     **{f"settls_step_{t}": _STEP_ARGTYPES for t in ("f32", "f64")},
     **{f"tile_window_gather_{t}": _TILE_ARGTYPES for t in ("f32", "f64")},
     **{f"sub_window_gather_{t}": _SUB_ARGTYPES for t in ("f32", "f64")},
-    **{f"pole_window_gather_{t}": _POLE_ARGTYPES for t in ("f32", "f64")},
+    **{f"pole_ladder_gather_{t}": _LADDER_ARGTYPES for t in ("f32", "f64")},
+    **{f"empty_launch_{t}": _LADDER_ARGTYPES for t in ("f32", "f64")},
 }
 
 

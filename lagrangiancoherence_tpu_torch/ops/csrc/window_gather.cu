@@ -1,19 +1,21 @@
-// K2 tile_window_gather, K3 sub_window_gather, K4 pole_window_gather: the
-// windowed gathers of the `blockspec` route of lagrangiancoherence_tpu_torch.
+// K2 tile_window_gather, K3 sub_window_gather and the pole ladder
+// pole_ladder_gather: the windowed gathers of the `blockspec` route of
+// lagrangiancoherence_tpu_torch.
 //
 // Replace the Pallas TPU kernels of lagrangiancoherence_tpu/ops/
 // pallas_interp.py:
 //   K2 dense mode  <- `_grid_kernel` (:715, tier A), body `_spline_tile_body`
 //   K2 list mode   <- `_list_kernel` (:772, the escalation ladder)
 //   K3             <- `_sub_grid_kernel` (:648, tier A-sub), `_sub_tile_body`
-//   K4 dense mode  <- `_pole_grid_kernel` (:738, pole level 1)
-//   K4 list mode   <- `_pole_list_kernel` (:755, pole levels 2 and 3),
-//                     both with body `_pole_block_body` (:668)
+//   pole ladder    <- `_pole_grid_kernel` (:738, pole level 1) and
+//                     `_pole_list_kernel` (:755, pole levels 2 and 3), both
+//                     with body `_pole_block_body` (:668): the three
+//                     launches of `_pole_eval_block` (:1116-1341) in one
 // Those contract one-hot bases on the MXU over a window of field cells that
 // routing (ops/tiles.py, ops/pole.py) proved to hold each (8, 128) tile's
 // taps.  Here one CTA evaluates one tile (K3: one 32-column quarter of a
-// tile; K4: one (8, 128)-point pole slot) and each thread gathers its
-// parcels' taps directly, with K1's arithmetic (gather_math.cuh):
+// tile) and each thread gathers its parcels' taps directly, with K1's
+// arithmetic (gather_math.cuh):
 //   * tap offsets are taken relative to the window start exactly as
 //     `_tap_offsets` (:268-299) takes them: the unwrapped floor is
 //     floor(fold) + n*k with the integer period count k of `_unwrap_k`,
@@ -34,6 +36,15 @@
 // `stage_bytes` (chosen by the wrapper, ops/cuda_window.py) are first
 // staged into shared memory by the whole CTA, so that each tap is a shared
 // memory read; wider and full-longitude windows read the stack through L2.
+//
+// The pole ladder moves under half a megabyte, so a launch's latency bounds
+// it, not bytes or operations.  The TPU split it into a dense launch and two
+// compacted list launches because a Pallas grid has one window shape; here
+// a CTA takes its slot's window from the slot's own keys, so one launch
+// serves every level and routing compacts nothing.  One point a thread,
+// its packed operand in one 16-byte load, the 4 * NF raw cells loaded
+// together through the read-only path (the home rows sit in L2), no
+// staging: 40 CTAs of 256 threads at the flagship's 2 x 5 slots.
 #include "gather_math.cuh"
 
 namespace {
@@ -45,6 +56,8 @@ constexpr int kTileR = 8;
 constexpr int kTileC = 128;
 constexpr int kTile = kTileR * kTileC;
 constexpr int kSubW = 32;
+constexpr int kLadderThreads = 256;            // pole ladder: points per CTA
+constexpr int kLadderParts = kTile / kLadderThreads;   // CTAs per slot
 constexpr int kSmemLimit = 131072;   // dynamic shared memory opted into
 
 __device__ __forceinline__ int pmod(int a, int n) {
@@ -264,63 +277,135 @@ sub_window_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
   finish_flag(bad, flags, slot, overflow, bit);
 }
 
-// K4: one CTA per (8, 128)-point sorted pole slot; order-1 mode='constant'
-// bilinear on the raw stack, y window [ys, ys + wy), full longitude.
-// `pack` is (4, n_slots * 1024): [yc, xc, vmask, mask] from routing.
-template <typename T, int NF>
-__global__ void __launch_bounds__(kThreads)
-pole_window_kernel(const T* __restrict__ raw, const T* __restrict__ pack,
-                   const int* __restrict__ ys, T* __restrict__ out,
-                   int* __restrict__ flags, int* __restrict__ overflow,
-                   const int* __restrict__ sel, const int* __restrict__ count,
-                   int n_slots, int ny, int nx, int wy, int bit) {
-  const int slot = blockIdx.x;
-  int s = slot;
-  if (sel != nullptr) {
-    if (slot >= *count) {
-      if (threadIdx.x == 0) flags[slot] = 0;
-      return;
-    }
-    s = sel[slot];
+// A kernel that returns at once: what a launch on this path costs when the
+// device has nothing to do (ops/cuda_window.py empty_launch).
+__global__ void empty_kernel() {}
+
+// The packed pole operand [yc, xc, vmask, mask] of point `at`: one 16-byte
+// load in float, two in double.
+__device__ __forceinline__ void load_pack(const float* pack, int64_t at,
+                                          float* q) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(pack) + at);
+  q[0] = v.x; q[1] = v.y; q[2] = v.z; q[3] = v.w;
+}
+__device__ __forceinline__ void load_pack(const double* pack, int64_t at,
+                                          double* q) {
+  const double2* p = reinterpret_cast<const double2*>(pack) + 2 * at;
+  const double2 a = __ldg(p), b = __ldg(p + 1);
+  q[0] = a.x; q[1] = a.y; q[2] = b.x; q[3] = b.y;
+}
+
+// slot key of a point: the floor of its clipped y index, in [0, ny-2]
+// (ops/pole.py pole_keys); it is also the point's upper-left row
+template <typename T>
+__device__ __forceinline__ int pole_key(T yc, int ny) {
+  return min(max(to_index(floor(yc)), 0), ny - 2);
+}
+
+// min of `lo` and max of `hi` over the CTA, in every thread
+__device__ __forceinline__ void block_min_max(int& lo, int& hi) {
+  constexpr int nwarps = kLadderThreads / 32;
+  __shared__ int s_lo[nwarps], s_hi[nwarps];
+  const int lane = threadIdx.x & 31;
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) {
+    s_lo[threadIdx.x >> 5] = lo;
+    s_hi[threadIdx.x >> 5] = hi;
   }
-  const int y0w = ys[s];
+  __syncthreads();
+  const int w = lane < nwarps ? lane : 0;
+  lo = __reduce_min_sync(0xffffffffu, s_lo[w]);
+  hi = __reduce_max_sync(0xffffffffu, s_hi[w]);
+}
+
+// The pole ladder in one launch: one thread per point of the sorted (8, 128)-
+// point pole slots, four CTAs of 256 points per slot.  `pack` is
+// (n_slots * 1024, 4): [yc, xc, vmask, mask] from routing.  Each CTA takes
+// the key range of its whole slot (its own points' keys, the keys of the
+// slot's other three CTAs, then a block reduction), and from it the level
+// that serves the slot and that level's window start, in the integer
+// arithmetic of ops/pole.py pole_levels: the first of the windows (wy1,
+// wy2, wy3) that holds rows [kymn, kymx + 1], the last if none does.  Then
+// each thread evaluates the order-1 mode='constant' bilinear of its point
+// on the raw stack against that y window, full longitude.  A masked point
+// of a level >= 2 slot whose rows leave the window clamps and raises `bit`.
+// The values equal those of a ladder that runs the levels one launch
+// after the other: a window that holds a slot's rows does not change them.
+template <typename T, int NF>
+__global__ void __launch_bounds__(kLadderThreads)
+pole_ladder_kernel(const T* __restrict__ raw, const T* __restrict__ pack,
+                   T* __restrict__ out, int* __restrict__ overflow,
+                   int* __restrict__ levels, int n_slots, int ny, int nx,
+                   int ny_p, int wy1, int wy2, int wy3, int bit) {
+  const int s = blockIdx.x / kLadderParts;
+  const int part = blockIdx.x % kLadderParts;
+  const int64_t first = static_cast<int64_t>(s) * kTile;
+  const int64_t at = first + part * kLadderThreads + threadIdx.x;
+  T q[4];
+  load_pack(pack, at, q);
+  const T yc = q[0], xc = q[1], vm = q[2], mk = q[3];
+  const int yi = pole_key(yc, ny);
+  int lo = yi, hi = yi;
+#pragma unroll
+  for (int o = 1; o < kLadderParts; ++o) {
+    const int64_t other =
+        first + (part + o) % kLadderParts * kLadderThreads + threadIdx.x;
+    const int k = pole_key(__ldg(pack + 4 * other), ny);
+    lo = min(lo, k);
+    hi = max(hi, k);
+  }
+  block_min_max(lo, hi);
+  const int kymx = min(max(hi + 1, 0), ny - 2);
+  const int kymn = min(min(max(lo - 1, 0), ny - 2), kymx);
+  const int wys[3] = {wy1, wy2, wy3};
+  int level = 2, y0w = 0, wy = wy3;
+#pragma unroll
+  for (int l = 2; l >= 0; --l) {
+    const int y = min(max(kymn / 8 * 8, 0), max(ny_p - wys[l], 0));
+    if (l == 2 || (kymn >= y && kymx + 1 <= y + wys[l] - 1)) {
+      level = l;
+      y0w = y;
+      wy = wys[l];
+    }
+  }
+  if (levels != nullptr && part == 0 && threadIdx.x == 0) levels[s] = level;
+
   const int64_t pp = static_cast<int64_t>(n_slots) * kTile;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  bool bad = false;
-  for (int p = threadIdx.x; p < kTile; p += kThreads) {
-    const int64_t at = static_cast<int64_t>(s) * kTile + p;
-    const T yc = pack[at];
-    const T xc = pack[pp + at];
-    const T vm = pack[2 * pp + at];
-    const T mk = pack[3 * pp + at];
-    const int yi = min(max(to_index(floor(yc)), 0), ny - 2);
-    int oy = yi - y0w;
-    bad |= (oy < 0 || oy > wy - 2) && mk > T(0);
-    oy = min(max(oy, 0), wy - 2);
-    const int64_t r0 = static_cast<int64_t>(pmod(y0w + oy, ny)) * nx;
-    const int64_t r1 = static_cast<int64_t>(pmod(y0w + oy + 1, ny)) * nx;
-    const int xi = min(max(to_index(floor(xc)), 0), nx - 2);
-    const T ty = sub_rn(yc, static_cast<T>(yi));
-    const T tx = sub_rn(xc, static_cast<T>(xi));
-    const T one_ty = sub_rn(T(1), ty);
-    const T one_tx = sub_rn(T(1), tx);
-    const T w00 = mul_rn(one_ty, one_tx);
-    const T w01 = mul_rn(one_ty, tx);
-    const T w10 = mul_rn(ty, one_tx);
-    const T w11 = mul_rn(ty, tx);
+  int oy = yi - y0w;
+  const bool bad = (oy < 0 || oy > wy - 2) && mk > T(0);
+  oy = min(max(oy, 0), wy - 2);
+  const int64_t r0 = static_cast<int64_t>(pmod(y0w + oy, ny)) * nx;
+  const int64_t r1 = static_cast<int64_t>(pmod(y0w + oy + 1, ny)) * nx;
+  const int xi = min(max(to_index(floor(xc)), 0), nx - 2);
+  const T ty = sub_rn(yc, static_cast<T>(yi));
+  const T tx = sub_rn(xc, static_cast<T>(xi));
+  const T one_ty = sub_rn(T(1), ty);
+  const T one_tx = sub_rn(T(1), tx);
+  const T w00 = mul_rn(one_ty, one_tx);
+  const T w01 = mul_rn(one_ty, tx);
+  const T w10 = mul_rn(ty, one_tx);
+  const T w11 = mul_rn(ty, tx);
+  T v[NF][4];
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const T* r = raw + f * plane;
-      out[f * pp + at] =
-          vm > T(0)
-              ? add_rn(add_rn(add_rn(mul_rn(r[r0 + xi], w00),
-                                     mul_rn(r[r0 + xi + 1], w01)),
-                              mul_rn(r[r1 + xi], w10)),
-                       mul_rn(r[r1 + xi + 1], w11))
-              : T(0);
-    }
+  for (int f = 0; f < NF; ++f) {   // 4 * NF independent loads in flight
+    const T* r = raw + f * plane;
+    v[f][0] = __ldg(r + r0 + xi);
+    v[f][1] = __ldg(r + r0 + xi + 1);
+    v[f][2] = __ldg(r + r1 + xi);
+    v[f][3] = __ldg(r + r1 + xi + 1);
   }
-  finish_flag(bad, flags, slot, overflow, bit);
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    out[f * pp + at] =
+        vm > T(0) ? add_rn(add_rn(add_rn(mul_rn(v[f][0], w00),
+                                         mul_rn(v[f][1], w01)),
+                                  mul_rn(v[f][2], w10)),
+                           mul_rn(v[f][3], w11))
+                  : T(0);
+  const int any = __syncthreads_or(bad && level > 0);
+  if (any && threadIdx.x == 0) atomicOr(overflow, 1 << bit);
 }
 
 template <typename T, int ORDER, int NF, bool XFULL>
@@ -408,24 +493,25 @@ int dispatch_sub(const void* coeffs, const void* folds, void* out, void* flags,
 }
 
 template <typename T>
-int dispatch_pole(const void* raw, const void* pack, const void* ys, void* out,
-                  void* flags, void* overflow, const void* sel,
-                  const void* count, int n_slots, int ny, int nx, int nf,
-                  long long f0, int wy, int bit, void* stream) {
-  if (n_slots <= 0) return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_ladder(const void* raw, const void* pack, void* out,
+                    void* overflow, void* levels, int n_slots, int ny, int nx,
+                    int nf, long long f0, int ny_p, int wy1, int wy2, int wy3,
+                    int bit, void* stream) {
+  if (n_slots <= 0 || overflow == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const T* r = static_cast<const T*>(raw) + static_cast<int64_t>(f0) * ny * nx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define POLE_CASE(F)                                                           \
+#define LADDER_CASE(F)                                                         \
   if (nf == F) {                                                               \
-    pole_window_kernel<T, F><<<n_slots, kThreads, 0, s>>>(                    \
-        r, static_cast<const T*>(pack), static_cast<const int*>(ys),          \
-        static_cast<T*>(out), static_cast<int*>(flags),                       \
-        static_cast<int*>(overflow), static_cast<const int*>(sel),            \
-        static_cast<const int*>(count), n_slots, ny, nx, wy, bit);            \
+    pole_ladder_kernel<T, F>                                                  \
+        <<<n_slots * kLadderParts, kLadderThreads, 0, s>>>(                   \
+        r, static_cast<const T*>(pack), static_cast<T*>(out),                 \
+        static_cast<int*>(overflow), static_cast<int*>(levels), n_slots, ny,  \
+        nx, ny_p, wy1, wy2, wy3, bit);                                        \
     return static_cast<int>(cudaGetLastError());                              \
   }
-  POLE_CASE(4) POLE_CASE(2)
-#undef POLE_CASE
+  LADDER_CASE(4) LADDER_CASE(2)
+#undef LADDER_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -434,7 +520,8 @@ int dispatch_pole(const void* raw, const void* pack, const void* ys, void* out,
 // C entry points, bound with ctypes by ops/cuda_window.py.  `coeffs`/`raw`
 // point at the whole (fields, ny, nx) stacks; fields [f0, f0 + nf) are
 // evaluated.  Optional pointers are NULL: x0map (full-longitude tier),
-// live (list mode), sel/count (dense mode), overflow (no bit to set).
+// live (list mode), sel/count (dense mode), overflow (no bit to set; the
+// pole ladder needs it), levels (the pole ladder's per-slot level output).
 // Each returns cudaGetLastError() after the launch (0 = launched).
 #define LCS_TILE_ENTRY(NAME, T)                                                \
   extern "C" int NAME(const void* coeffs, const void* folds, void* out,        \
@@ -467,14 +554,27 @@ LCS_SUB_ENTRY(sub_window_gather_f32, float)
 LCS_SUB_ENTRY(sub_window_gather_f64, double)
 #undef LCS_SUB_ENTRY
 
-#define LCS_POLE_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* raw, const void* pack, const void* ys,       \
-                      void* out, void* flags, void* overflow, const void* sel, \
-                      const void* count, int n_slots, int ny, int nx, int nf,  \
-                      long long f0, int wy, int bit, void* stream) {           \
-    return dispatch_pole<T>(raw, pack, ys, out, flags, overflow, sel, count,   \
-                            n_slots, ny, nx, nf, f0, wy, bit, stream);         \
+#define LCS_LADDER_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const void* raw, const void* pack, void* out,            \
+                      void* overflow, void* levels, int n_slots, int ny,       \
+                      int nx, int nf, long long f0, int ny_p, int wy1,         \
+                      int wy2, int wy3, int bit, void* stream) {               \
+    return dispatch_ladder<T>(raw, pack, out, overflow, levels, n_slots, ny,   \
+                              nx, nf, f0, ny_p, wy1, wy2, wy3, bit, stream);   \
   }
-LCS_POLE_ENTRY(pole_window_gather_f32, float)
-LCS_POLE_ENTRY(pole_window_gather_f64, double)
-#undef LCS_POLE_ENTRY
+LCS_LADDER_ENTRY(pole_ladder_gather_f32, float)
+LCS_LADDER_ENTRY(pole_ladder_gather_f64, double)
+#undef LCS_LADDER_ENTRY
+
+// The empty launch, with pole_ladder_gather's arguments (all ignored but the
+// stream), so that both cross the binding at the same cost.
+#define LCS_EMPTY_ENTRY(NAME)                                                  \
+  extern "C" int NAME(const void*, const void*, void*, void*, void*, int, int, \
+                      int, int, long long, int, int, int, int, int,            \
+                      void* stream) {                                          \
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();           \
+    return static_cast<int>(cudaGetLastError());                               \
+  }
+LCS_EMPTY_ENTRY(empty_launch_f32)
+LCS_EMPTY_ENTRY(empty_launch_f64)
+#undef LCS_EMPTY_ENTRY

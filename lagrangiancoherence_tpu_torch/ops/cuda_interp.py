@@ -19,13 +19,13 @@ from __future__ import annotations
 
 import torch
 
+from ._launch import SUFFIX, entry, stream
 from .interp import interp_at_parcels_multi
 
 __all__ = ["LAUNCHES", "cuda_interp_multi"]
 
 LAUNCHES = 0
 
-_ENTRY = {torch.float32: "spline_gather_f32", torch.float64: "spline_gather_f64"}
 _MAX_GRID_ROWS = 65535   # gridDim.y
 
 
@@ -58,7 +58,7 @@ def cuda_interp_multi(fields: torch.Tensor, coeffs: torch.Tensor,
     if len(devices) != 1 or px.device.type != "cuda":
         raise ValueError(f"cuda_interp_multi: tensors must all be on one "
                          f"CUDA device or all on the CPU, got {devices}")
-    if fields.dtype not in _ENTRY:
+    if fields.dtype not in SUFFIX:
         raise TypeError(f"cuda_interp_multi: dtype {fields.dtype} not "
                         f"supported (float32, float64)")
     if any(t.dtype != fields.dtype for t in (coeffs, px, py)):
@@ -85,16 +85,14 @@ def cuda_interp_multi(fields: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"cuda_interp_multi: {rows}x{cols} positions "
                          f"exceed the launch grid")
 
-    from ._build import load_library
-    fn = getattr(load_library(), _ENTRY[fields.dtype])
+    fn = entry("spline_gather", fields.dtype)
     out = torch.empty((nf, rows, cols), dtype=fields.dtype, device=px.device)
     if rows and cols:
-        stream = torch.cuda.current_stream(px.device).cuda_stream
         rc = fn(fields.data_ptr(), coeffs.data_ptr(), px.data_ptr(),
                 py.data_ptr(), out.data_ptr(), ny, nx, rows, cols,
                 int(row_offset), order, nf, f0, float(x_min),
                 float(x_max) - float(x_min), float(y_min),
-                float(y_max) - float(y_min), stream)
+                float(y_max) - float(y_min), stream(px.get_device()))
         if rc != 0:
             raise RuntimeError(f"spline_gather launch failed: CUDA error "
                                f"{rc}")

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..grid import EARTH_RADIUS
+from ._launch import SUFFIX, entry, stream
 from .interp import interp_at_parcels_multi
 
 __all__ = ["CONV_Y", "LAUNCHES", "clamp_wrap", "euler_guess", "interleave",
@@ -32,7 +33,6 @@ __all__ = ["CONV_Y", "LAUNCHES", "clamp_wrap", "euler_guess", "interleave",
 
 LAUNCHES = 0
 CONV_Y = 180.0 / (EARTH_RADIUS * np.pi)    # m/s -> deg/s of latitude
-_ENTRY = {torch.float32: "settls_step_f32", torch.float64: "settls_step_f64"}
 
 
 def clamp_wrap(px, py, *, y_min, y_max, x_min, x_max, cyclic_x):
@@ -137,7 +137,7 @@ def settls_step(u, v, coeffs, px, py, conv_x, dt, t: int, *,
     if len(devices) != 1 or px.device.type != "cuda":
         raise ValueError(f"settls_step: tensors must all be on one CUDA "
                          f"device or all on the CPU, got {devices}")
-    if px.dtype not in _ENTRY:
+    if px.dtype not in SUFFIX:
         raise TypeError(f"settls_step: dtype {px.dtype} not supported "
                         f"(float32, float64)")
     if any(a.dtype != px.dtype for a in tensors):
@@ -171,14 +171,12 @@ def settls_step(u, v, coeffs, px, py, conv_x, dt, t: int, *,
     if coeffs.data_ptr() % (2 * coeffs.element_size()):
         raise ValueError("settls_step: coeffs not aligned to a (u, v) pair")
 
-    from ._build import load_library
-    fn = getattr(load_library(), _ENTRY[px.dtype])
-    rc = fn(u.data_ptr(), v.data_ptr(), coeffs.data_ptr(), px.data_ptr(),
+    rc = entry("settls_step", px.dtype)(u.data_ptr(), v.data_ptr(), coeffs.data_ptr(), px.data_ptr(),
             py.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             conv_x.data_ptr(), dt.data_ptr(), ny, nx, t, order, settls_order,
             int(bool(cyclic_x)), CONV_Y, float(x_min), float(x_max),
             float(y_min), float(y_max),
-            torch.cuda.current_stream(px.device).cuda_stream)
+            stream(px.get_device()))
     if rc != 0:
         raise RuntimeError(f"settls_step launch failed: CUDA error {rc}")
     LAUNCHES += 1

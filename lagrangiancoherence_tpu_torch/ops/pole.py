@@ -9,18 +9,22 @@ their clipped y index and cut into (8, 128)-point slots, so that each slot
 spans a few consecutive field rows.  A three-level ladder of full-longitude
 y windows (``POLE_LADDER`` rows) serves them:
 
-* level 1 runs every slot with the shortest window;
-* level 2 runs the compacted list of slots that did not fit level 1 but
-  fit level 2;
-* level 3 runs every slot still uncovered with the tallest window; its
-  clamped slots raise overflow bit 4.  Bit 3 is a level-1 clamp that no
-  later level covered.
+* level 1 serves the slots whose rows fit the shortest window;
+* level 2 the slots that did not fit level 1 but fit level 2;
+* level 3 every slot left, with the tallest window; its clamped slots
+  raise overflow bit 4.  Bit 3, a level-1 clamp that no later level
+  covered, is therefore never raised.
 
-Slot lists are compacted with a cumsum and a scatter, so nothing
-synchronises with the host.
+JAX runs the levels as three launches, the later two over compacted slot
+lists.  Here one launch (``pole_ladder_gather``, ``ops/cuda_window.py``)
+serves every slot at its own level: the kernel takes the level from the
+slot's keys, so routing hands it only the packed operand (``pole_pack``).
+``pole_levels`` states the same choice in torch ops, for the plain version
+and the tests.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -28,9 +32,10 @@ import torch
 from .interp import _to_index, scale_positions
 from .tiles import POLE_PAD, TILE_C, TILE_R
 
-__all__ = ["POLE_LADDER", "PoleRouting", "pole_apply_perm", "pole_flat_dims",
-           "pole_levels", "pole_pack", "pole_rows", "pole_side_flat",
-           "pole_sort_state", "pole_unsort_rows", "set_pole_rows"]
+__all__ = ["POLE_LADDER", "PoleRouting", "ladder_windows", "pole_apply_perm",
+           "pole_flat_dims", "pole_keys", "pole_levels", "pole_pack",
+           "pole_rows", "pole_side_flat", "pole_sort_state",
+           "pole_unsort_rows", "set_pole_rows"]
 
 _SLOT = TILE_R * TILE_C
 POLE_LADDER = (16, 160, 288)     # pallas_interp.py:113-122, rows
@@ -108,20 +113,34 @@ def pole_unsort_rows(flat, inv, *, order, nx):
 
 
 def pole_pack(pxf, pyf, mask, *, ny, nx, x_min, x_max, y_min, y_max):
-    """The packed per-point operand ``[yc, xc, vmask, mask]`` (4, S*8, 128)
-    of (2, Mpad) sorted point lists, and each point's slot key (S, 1024):
-    clipped direct float indices and the in-range mask, computed once here
-    and never again in the kernels (pallas_interp.py:1140-1169)."""
+    """The packed per-point operand ``[yc, xc, vmask, mask]`` (S*1024, 4)
+    of (2, Mpad) sorted point lists, one row per point: clipped direct
+    float indices and the in-range mask, computed once here and never again
+    in the kernel (pallas_interp.py:1140-1169)."""
     xi, yi = scale_positions(pxf, pyf, x_min=x_min, x_max=x_max, y_min=y_min,
                              y_max=y_max, nx=nx, ny=ny)
     yc = torch.clamp(yi, 0.0, ny - 1.0)
     xc = torch.clamp(xi, 0.0, nx - 1.0)
     vm = ((yi >= 0) & (yi <= ny - 1) & (xi >= 0) & (xi <= nx - 1)).to(
         pxf.dtype)
-    s = pxf.shape[0] * pxf.shape[1] // _SLOT
-    pack = torch.stack([yc, xc, vm, mask.to(pxf.dtype)]).reshape(
-        4, s * TILE_R, TILE_C)
-    return pack, _sort_key(yi, ny).reshape(s, _SLOT)
+    return torch.stack([yc, xc, vm, mask.to(pxf.dtype)], dim=-1).reshape(-1, 4)
+
+
+def pole_keys(pack: torch.Tensor, ny: int) -> torch.Tensor:
+    """(S, 1024) slot keys of a packed operand: ``_sort_key`` of each
+    point, taken from its clipped y index."""
+    return torch.clamp(_to_index(torch.floor(pack[:, 0])), 0,
+                       ny - 2).reshape(-1, _SLOT)
+
+
+@lru_cache(maxsize=None)
+def ladder_windows(ny: int, ladder: tuple) -> tuple[int, tuple]:
+    """(padded rows ny_p, the ladder's window heights): each height a
+    multiple of 8, at least 8 and at most ny_p (pallas_interp.py:1137-1138,
+    1187-1194)."""
+    ny_p = _cdiv(ny, TILE_R) * TILE_R + POLE_PAD
+    return ny_p, tuple(min(max(8, (int(w) // 8) * 8), (ny_p // 8) * 8)
+                       for w in ladder)
 
 
 class PoleRouting(NamedTuple):
@@ -129,6 +148,7 @@ class PoleRouting(NamedTuple):
     wy: list           # per level: window rows
     want: list         # per level >= 2: (S,) bool slots to run
     fit1: torch.Tensor  # (S,) bool
+    level: torch.Tensor  # (S,) int64: the level that serves each slot, 0..2
 
 
 def pole_levels(key: torch.Tensor, *, ny: int, ladder=POLE_LADDER
@@ -136,10 +156,8 @@ def pole_levels(key: torch.Tensor, *, ny: int, ladder=POLE_LADDER
     """Per-level window starts and fits of the sorted slots
     (pallas_interp.py:1137-1138, 1187-1194).  ``key``: (S, 1024) slot keys.
     Level 2 wants the slots level 1 did not fit but level 2 does; level 3
-    wants every slot left (its ``want`` is completed by the caller as
-    ``~(fit1 | want2)``)."""
-    ny_p = _cdiv(ny, TILE_R) * TILE_R + POLE_PAD
-    wys = [min(max(8, (int(w) // 8) * 8), (ny_p // 8) * 8) for w in ladder]
+    wants every slot left."""
+    ny_p, wys = ladder_windows(ny, tuple(ladder))
     kymn = torch.clamp(key.amin(dim=1) - 1, 0, ny - 2)
     kymx = torch.clamp(key.amax(dim=1) + 1, 0, ny - 2)
     kymn = torch.minimum(kymn, kymx)
@@ -150,18 +168,7 @@ def pole_levels(key: torch.Tensor, *, ny: int, ladder=POLE_LADDER
         ys.append(y.to(torch.int32))
     want2 = (~fits[0]) & fits[1]
     want3 = ~(fits[0] | want2)
-    return PoleRouting(ys=ys, wy=wys, want=[None, want2, want3],
-                       fit1=fits[0])
+    level = 2 - 2 * fits[0].long() - want2.long()
+    return PoleRouting(ys=ys, wy=list(wys), want=[None, want2, want3],
+                       fit1=fits[0], level=level)
 
-
-def compact(want: torch.Tensor):
-    """(S,) bool → (sel (S,) int32 with the wanted slots first, in order;
-    count 0-dim int32), by cumsum and scatter."""
-    s = want.shape[0]
-    w = want.to(torch.int32)
-    rank = torch.cumsum(w, dim=0) - 1
-    dst = torch.where(want, rank, s).long()
-    sel = torch.zeros((s + 1,), dtype=torch.int32, device=want.device)
-    sel.scatter_(0, dst, torch.arange(s, dtype=torch.int32,
-                                      device=want.device))
-    return sel[:s].contiguous(), w.sum(dtype=torch.int32)

@@ -1,5 +1,5 @@
 """The windowed gather of the ``blockspec`` route — plain PyTorch versions of
-K2, K3 and K4 and the routed evaluation that drives them.
+K2, K3 and the pole ladder, and the routed evaluation that drives them.
 
 Counterpart of ``lagrangiancoherence_tpu/ops/pallas_interp.py``
 ``pallas_interp_multi`` with a non-``dma-all`` engine: tier A, then tier
@@ -23,6 +23,7 @@ tiers), or directly (the pole path's raw rows).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -31,8 +32,8 @@ from . import pole as P
 from .interp import _axis_taps, _cubic_weights, _to_index
 from .tiles import N_SUB, SUB_W, TILE_C, TILE_R, WX, route_tiles, unwrap_k
 
-__all__ = ["Launch", "kernel_functions", "pole_launches",
-           "pole_window_gather_plain", "spline_launches",
+__all__ = ["Launch", "kernel_functions", "pole_ladder_gather_plain",
+           "pole_launch", "spline_launches",
            "sub_window_gather_plain", "tile_window_gather_plain",
            "windowed_interp_multi"]
 
@@ -171,29 +172,30 @@ def sub_window_gather_plain(coeffs, folds, out, flags, overflow, y0map, x0q,
                  gy, gx)
 
 
-def pole_window_gather_plain(raw, pack, ys, out, flags, overflow, *, f0, nf,
-                             wy, bit, sel=None, count=None):
-    """K4's plain version: order-1 ``mode='constant'`` bilinear on the raw
-    stack for each (8, 128)-point slot of ``pack`` (4, S*8, 128), against
-    the y window [ys, ys + wy).  Dense mode: every slot; list mode: slots
-    below ``count`` run slots ``sel``.  A masked point whose rows leave the
-    window flags its slot and clamps."""
+def pole_ladder_gather_plain(raw, pack, out, overflow, *, f0, nf, ladder,
+                             bit, levels=None):
+    """The pole ladder's plain version: order-1 ``mode='constant'``
+    bilinear on the raw stack for every point of the sorted (8, 128)-point
+    slots of ``pack`` (S*1024, 4) (``pole.pole_pack``), each slot against
+    the y window of the level that serves it (``pole.pole_levels``: the
+    first of the ``ladder`` windows that holds the slot's rows, the last if
+    none does).  Writes ``out`` (nf, S*8, 128); a masked point of a level
+    >= 2 slot whose rows leave the window clamps and ORs ``bit`` into
+    ``overflow``.  ``levels`` (S,) int32, when given, receives each slot's
+    level (0..2)."""
     _, ny, nx = raw.shape
-    s_n = pack.shape[1] // TILE_R
-    dev = pack.device
     slot = TILE_R * TILE_C
-    if sel is None:
-        s = torch.arange(s_n, device=dev)
-        alive = torch.ones((s_n,), dtype=torch.bool, device=dev)
-    else:
-        s = sel.long()
-        alive = torch.arange(s_n, device=dev) < count
-    yc, xc, vm, mk = pack.reshape(4, s_n, slot)[:, s]
-    y0w = ys.long()[s][:, None]
+    pr = P.pole_levels(P.pole_keys(pack, ny), ny=ny, ladder=ladder)
+    lvl = pr.level[:, None]
+    y0w, wy = pr.ys[2].long()[:, None], pr.wy[2]
+    for k in (1, 0):
+        y0w = torch.where(lvl == k, pr.ys[k].long()[:, None], y0w)
+        wy = torch.where(lvl == k, pr.wy[k], wy)
+    yc, xc, vm, mk = pack.reshape(-1, slot, 4).unbind(-1)
     yi = _to_index(torch.floor(yc)).clamp(0, ny - 2)
     oy = yi - y0w
     bad = ((oy < 0) | (oy > wy - 2)) & (mk > 0)
-    oy = oy.clamp(0, wy - 2)
+    oy = torch.minimum(oy.clamp(min=0), wy - 2)
     r0 = torch.remainder(y0w + oy, ny) * nx
     r1 = torch.remainder(y0w + oy + 1, ny) * nx
     xi = _to_index(torch.floor(xc)).clamp(0, nx - 2)
@@ -208,13 +210,11 @@ def pole_window_gather_plain(raw, pack, ys, out, flags, overflow, *, f0, nf,
            + at(r0 + xi + 1) * ((1 - ty) * tx)[None]
            + at(r1 + xi) * (ty * (1 - tx))[None]
            + at(r1 + xi + 1) * (ty * tx)[None])
-    val = torch.where(vm[None] > 0, val, torch.zeros((), dtype=val.dtype,
-                                                     device=dev))
-    flags.copy_((bad.any(dim=1) & alive).to(torch.int32))
-    _or_bit(overflow, flags, bit)
-    om = torch.cat([out.reshape(nf, s_n, slot), val[:, :1]], dim=1)
-    om[:, torch.where(alive, s, s_n)] = val
-    out.copy_(om[:, :s_n].reshape(out.shape))
+    out.copy_(torch.where(vm[None] > 0, val, torch.zeros(
+        (), dtype=val.dtype, device=val.device)).reshape(out.shape))
+    overflow |= (bad & (lvl > 0)).any().to(torch.int32) << bit
+    if levels is not None:
+        levels.copy_(pr.level)
 
 
 # ---------------------------------------------------------------------------
@@ -231,17 +231,22 @@ class Launch(NamedTuple):
     run: Callable
 
 
-def kernel_functions(kernel: str) -> dict:
-    """The functions of a kernel choice, by kernel name."""
+def kernel_functions(kernel: str, shared=None) -> dict:
+    """The functions of a kernel choice, by kernel name.  ``shared``
+    (``cuda_window.shared_tensors``, ``"cuda"`` only) is handed to every
+    spline launch, which then skips the checks it vouches for."""
     if kernel == "torch":
         return {"tile_window_gather": tile_window_gather_plain,
                 "sub_window_gather": sub_window_gather_plain,
-                "pole_window_gather": pole_window_gather_plain}
+                "pole_ladder_gather": pole_ladder_gather_plain}
     if kernel == "cuda":
         from . import cuda_window as C
-        return {"tile_window_gather": C.tile_window_gather,
-                "sub_window_gather": C.sub_window_gather,
-                "pole_window_gather": C.pole_window_gather}
+        tile, sub = C.tile_window_gather, C.sub_window_gather
+        if shared is not None:
+            tile, sub = partial(tile, shared=shared), partial(sub,
+                                                              shared=shared)
+        return {"tile_window_gather": tile, "sub_window_gather": sub,
+                "pole_ladder_gather": C.pole_ladder_gather}
     raise ValueError(f"kernel={kernel!r}: expected 'cuda' or 'torch'")
 
 
@@ -271,46 +276,27 @@ def spline_launches(rt, coeffs, *, f0, nf, order, wy) -> list[Launch]:
     return out
 
 
-def pole_launches(raw, pxf, pyf, mask, *, f0, nf, bounds, ladder):
-    """The pole ladder's launches for (2, Mpad) sorted point lists
-    (pallas_interp.py:1116-1324): K4 dense over every slot (level 1, flags
-    only), then K4 list over the level-2 and level-3 slots (bit 4).  Each
-    writes into an (nf, S*8, 128) output.  Also returns the routing
-    (``pole.pole_levels``)."""
-    _, ny, nx = raw.shape
-    pack, key = P.pole_pack(pxf, pyf, mask, ny=ny, nx=nx, **bounds)
-    pr = P.pole_levels(key, ny=ny, ladder=ladder)
-    n_s = key.shape[0]
-    out = [Launch("pole_window_gather", "dense", n_s,
-                  lambda fn, o, f, v: fn(raw, pack, pr.ys[0], o, f, None,
-                                         f0=f0, nf=nf, wy=pr.wy[0], bit=4))]
-    for lvl in (1, 2):
-        sel, count = P.compact(pr.want[lvl])
-        out.append(Launch(
-            "pole_window_gather", "list", n_s,
-            lambda fn, o, f, v, lvl=lvl, sel=sel, count=count: fn(
-                raw, pack, pr.ys[lvl], o, f, v, f0=f0, nf=nf, wy=pr.wy[lvl],
-                bit=4, sel=sel, count=count)))
-    return out, pr
+def pole_launch(raw, pack, *, f0, nf, ladder) -> Launch:
+    """The pole ladder's one launch for the packed sorted slots ``pack``
+    (``pole.pole_pack``): it writes an (nf, S*8, 128) output and ORs bit 4;
+    its ``flags`` (S,), when given, receive the slots' levels."""
+    return Launch("pole_ladder_gather", "", pack.shape[0] // (TILE_R * TILE_C),
+                  lambda fn, o, f, v: fn(raw, pack, o, v, f0=f0, nf=nf,
+                                         ladder=ladder, bit=4, levels=f))
 
 
 def _pole_eval(fns, raw, pxf, pyf, mask, *, f0, nf, bounds, ladder):
     """Values (nf, 2, Mpad) of sorted pole lists, in the lists' order, and
-    the overflow bits 3 and 4 (0-dim int32)."""
-    launches, pr = pole_launches(raw, pxf, pyf, mask, f0=f0, nf=nf,
-                                 bounds=bounds, ladder=ladder)
-    dev = pxf.device
-    vals = torch.empty((nf, pr.ys[0].shape[0] * TILE_R, TILE_C),
-                       dtype=raw.dtype, device=dev)
-    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
-    flags = [torch.empty((ln.n_flags,), dtype=torch.int32, device=dev)
-             for ln in launches]
-    for ln, fl in zip(launches, flags):
-        ln.run(fns[ln.kernel], vals, fl, overflow)
-    # bit 3: a level-1 clamp no later level covered (level 3 takes every
-    # slot left, so it stays 0, as in JAX)
-    covered = pr.fit1 | pr.want[1] | pr.want[2]
-    overflow |= (flags[0] * (~covered)).amax() << 3
+    the overflow word (0-dim int32): bit 4, the clamped residue.  Bit 3, a
+    level-1 clamp that no later level covered, cannot be raised: the last
+    level takes every slot left, as in JAX."""
+    _, ny, nx = raw.shape
+    pack = P.pole_pack(pxf, pyf, mask, ny=ny, nx=nx, **bounds)
+    ln = pole_launch(raw, pack, f0=f0, nf=nf, ladder=tuple(ladder))
+    vals = torch.empty((nf, ln.n_flags * TILE_R, TILE_C), dtype=raw.dtype,
+                       device=pxf.device)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=pxf.device)
+    ln.run(fns[ln.kernel], vals, None, overflow)
     return vals.reshape(nf, 2, -1), overflow[0]
 
 
@@ -327,8 +313,9 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
 
     ``raw``/``coeffs``: (..., ny, nx) raw and prefiltered stacks whose
     leading axes flatten to the field index.  ``px``/``py``: (ny, nx)
-    positions of the whole grid.  ``kernel``: ``"cuda"`` (K2-K4) or
-    ``"torch"`` (their plain versions).  ``wy``: tier A's window height.
+    positions of the whole grid.  ``kernel``: ``"cuda"`` (K2, K3 and the
+    pole ladder) or ``"torch"`` (their plain versions).  ``wy``: tier A's
+    window height.
     ``retry_tiles=0`` turns off tier A-sub and the ladder (unfit tiles
     clamp and flag).  ``ladder``: (wy, wx or None, capacity) escalation
     tiers, default ``tiles.DEFAULT_LADDER``.  ``pole_ladder``: the pole
@@ -343,8 +330,9 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
 
     Returns ``(out (nf, ny, nx), overflow)`` with JAX's overflow bitmask as
     an int32 0-dim tensor: bit 1 a tile left uncovered, bit 2 a clamped
-    tier-A or A-sub tile, bit 3 an uncovered pole level-1 clamp, bit 4 the
-    pole residue, bit 5+t a clamped tile of ladder tier t.
+    tier-A or A-sub tile, bit 3 an uncovered pole level-1 clamp (never
+    raised: the ladder's last level takes every slot left), bit 4 the pole
+    residue, bit 5+t a clamped tile of ladder tier t.
     """
     ny, nx = raw.shape[-2:]
     raw = raw.reshape(-1, ny, nx)
@@ -374,6 +362,11 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
     out = torch.empty((nf, rt.gy * TILE_R, rt.gx * TILE_C), dtype=raw.dtype,
                       device=px.device)
     overflow = rt.overflow
+    if kernel == "cuda" and out.is_cuda:
+        # the tensors every spline launch shares are checked once
+        from .cuda_window import shared_tensors
+        fns = kernel_functions(kernel, shared_tensors(coeffs, rt.folds, out,
+                                                      overflow))
     for ln in spline_launches(rt, coeffs, f0=f0, nf=nf, order=order, wy=wy):
         ln.run(fns[ln.kernel], out, torch.empty(
             (ln.n_flags,), dtype=torch.int32, device=px.device), overflow)

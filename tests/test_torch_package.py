@@ -156,7 +156,7 @@ def test_build_names_library_by_source_hash():
     assert set(_build.SIGNATURES) == {
         f"{k}_{t}" for k in ("spline_gather", "settls_step",
                              "tile_window_gather", "sub_window_gather",
-                             "pole_window_gather")
+                             "pole_ladder_gather", "empty_launch")
         for t in ("f32", "f64")}
 
 

@@ -1,7 +1,8 @@
 """Port parity of the ``engine="blockspec"`` SETTLS scan and pipeline:
-lagrangiancoherence_tpu_torch (plain versions of K2-K4, sort-binned polar
-bands, the hoisted pole loop) against the JAX package's XLA scan and its
-own ``engine="auto"`` route, on the CPU in float64.
+lagrangiancoherence_tpu_torch (plain versions of K2, K3 and the pole
+ladder, sort-binned polar bands, the hoisted pole loop) against the JAX
+package's XLA scan and its own ``engine="auto"`` route, on the CPU in
+float64.
 
 Bounds: positions within 1e-10 degrees of JAX (tests/test_torch_settls.py:
 the same operations; the prefilter's summation order differs) and within

@@ -189,10 +189,10 @@ def test_pole_path_matches_jax(ladder, nx, monkeypatch):
     assert int(flag) == int(jflag) == 0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=POLE_ATOL)
-    _, key = P.pole_pack(torch.tensor(pxp), torch.tensor(pyp),
-                         torch.ones(pxp.shape, dtype=torch.float64), ny=NY,
-                         nx=nx, **bounds)
-    levels = P.pole_levels(key, ny=NY, ladder=ladder)
+    pack = P.pole_pack(torch.tensor(pxp), torch.tensor(pyp),
+                       torch.ones(pxp.shape, dtype=torch.float64), ny=NY,
+                       nx=nx, **bounds)
+    levels = P.pole_levels(P.pole_keys(pack, NY), ny=NY, ladder=ladder)
     if ladder != P.POLE_LADDER:
         assert all(int(w.sum()) > 0 for w in levels.want[1:])
 
