@@ -81,17 +81,27 @@ WINDOW_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/window_gather.cu"
 _PALLAS = "lagrangiancoherence_tpu/ops/pallas_interp.py"
 # the window kernels by name and mode, and the Pallas kernel each replaces
 WINDOW_KERNELS = {
-    "tile_window_gather.dense": [f"{_PALLAS}:715"],  # _grid_kernel
-    "tile_window_gather.list": [f"{_PALLAS}:772"],   # _list_kernel
-    "sub_window_gather": [f"{_PALLAS}:648"],         # _sub_grid_kernel
+    # _grid_kernel (tier A), _list_kernel (the ladder) and _sub_grid_kernel
+    # (tier A-sub): the spline tiers as one routed gather
+    "tier_window_gather": [f"{_PALLAS}:715", f"{_PALLAS}:772",
+                           f"{_PALLAS}:648"],
     # _pole_grid_kernel and _pole_list_kernel: the ladder in one launch
     "pole_ladder_gather": [f"{_PALLAS}:738", f"{_PALLAS}:755"],
 }
+# the launches tier_window_gather replaced, timed beside it
+OLD_KERNELS = ("tile_window_gather.dense", "tile_window_gather.list",
+               "sub_window_gather")
 # launches per flagship field on the blockspec route: 32 steps of 5 gather
-# groups, the ladder's 6 list tiers in each
-BLOCKSPEC_LAUNCHES = {"tile_window_gather.dense": 160,
-                      "tile_window_gather.list": 960,
-                      "sub_window_gather": 160, "pole_ladder_gather": 160}
+# groups, the spline tiers' two kernels and the pole ladder's one in each
+BLOCKSPEC_LAUNCHES = {"tier_window_gather.route": 160,
+                      "tier_window_gather.gather": 160,
+                      "pole_ladder_gather": 160}
+TIER_SHAPES = (256, 512, 1024)      # threads of a tier_gather_kernel CTA
+# the default ladder with capacities of 1 to 4: every tier fills, tiles
+# spill to later tiers and some are left to tier A
+CAPPED_LADDER = ((64, 256, 1), (32, 384, 2), (64, 384, 3), (32, 512, 4),
+                 (64, 512, 1), (128, 768, 2), (32, None, 3), (64, None, 4),
+                 (192, None, 1))
 FORCED_POLE_LADDER = (8, 16, 288)   # slots escalate to levels 2 and 3
 CLAMPED_POLE_LADDER = (8, 8, 8)     # the last level clamps: bit 4
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s
@@ -111,6 +121,14 @@ def gather_ops(nf, order=ORDER):
     (38 at order 3, 4 at order 1), then per tap the weight product and
     ``nf`` multiply-adds."""
     return 16 + {3: 38, 1: 4}[order] + (order + 1) ** 2 * (1 + 2 * nf)
+
+
+def tier_ops(nf, order=ORDER):
+    """Operations of the routed window gather at one parcel: routing's two
+    floors, three unwraps (8 each) and ten min/max; then the gather's two
+    unwraps, its B-spline weights and per tap the weight product and ``nf``
+    multiply-adds (the folds are given, so no scaling and no fold)."""
+    return 2 + 3 * 8 + 10 + gather_ops(nf, order) - 16 + 2 * 8
 
 
 def bilinear_ops(nf):
@@ -211,8 +229,15 @@ def window_launches(W, CW, px, py, *, f0, nf, wy, bounds, ladder,
     ny, nx = px.shape
     fns = {kind: WI.kernel_functions(k) for kind, k in (("cuda", "cuda"),
                                                  ("plain", "torch"))}
+    from functools import partial
     from lagrangiancoherence_tpu_torch.ops import cuda_window
     fns["empty"] = {"pole_ladder_gather": cuda_window.empty_launch}
+    # the same kernels reading every window through L2 (no staging)
+    fns["unstaged"] = {
+        "tile_window_gather": partial(cuda_window.tile_window_gather,
+                                      stage=False),
+        "sub_window_gather": partial(cuda_window.sub_window_gather,
+                                     stage=False)}
     rt = route_tiles(px, py, ny=ny, nx=nx, order=order, wy=wy,
                      retry_tiles=retry_tiles, ladder=ladder, **bounds)
     rx, ry = PL.pole_rows(px, order), PL.pole_rows(py, order)
@@ -241,6 +266,84 @@ def window_launches(W, CW, px, py, *, f0, nf, wy, bounds, ladder,
               "sub": int(rt.liveS.sum()) if rt.liveS is not None else 0,
               "pole_levels": [int((pr.level == k).sum()) for k in range(3)]}
     return runs, counts
+
+
+def tier_run(CW, px, py, kind, *, f0, nf, wy, bounds, ladder, order=ORDER,
+             retry_tiles=256, threads=None):
+    """One gather group's spline tiers through ``tier_window_gather`` (kind
+    "cuda", ``threads`` a CTA) or its plain version (kind "plain") on zeroed
+    outputs: {"out", "plan", "fits", "flags", "overflow"} and a closure
+    that launches again on the same buffers."""
+    import torch
+    from functools import partial
+    from lagrangiancoherence_tpu_torch.ops import cuda_window
+    from lagrangiancoherence_tpu_torch.ops import window_interp as WI
+    ny, nx = px.shape
+    ln, folds = WI.tier_launch(CW.reshape(-1, ny, nx), px, py, f0=f0, nf=nf,
+                               order=order, wy=wy, retry_tiles=retry_tiles,
+                               ladder=ladder, **bounds)
+    fn = WI.tier_window_gather_plain
+    if kind == "cuda":
+        fn = cuda_window.tier_window_gather
+        if threads:
+            fn = partial(fn, threads=threads)
+    ints = dict(dtype=torch.int32, device=px.device)
+    n = ln.n_flags
+    res = {"out": torch.zeros((nf,) + tuple(folds.shape[1:]), dtype=CW.dtype,
+                              device=px.device),
+           "plan": torch.full((n, WI.PLAN_W), -9, **ints),
+           "fits": torch.full((n,), -9, **ints),
+           "flags": torch.full((n,), -9, **ints),
+           "overflow": torch.zeros((1,), **ints)}
+
+    def again():
+        ln.run(fn, res["out"], res["plan"], res["fits"], res["flags"],
+               res["overflow"])
+    again()
+    return res, again
+
+
+def old_spline_group(CW, px, py, *, f0, nf, wy, bounds, ladder, order=ORDER,
+                     retry_tiles=256):
+    """The same group through the launches ``tier_window_gather`` replaces
+    (``route_tiles``, then K2 dense, K3 and one K2 list launch a ladder
+    tier, on the card): the output, each tile's tier (-2 A-sub, -1 tier A,
+    t ladder tier t) and flag word in ``tier_window_gather``'s form, the
+    overflow word, and ``route_tiles``' tier-A fits."""
+    import torch
+    from lagrangiancoherence_tpu_torch.ops import window_interp as WI
+    from lagrangiancoherence_tpu_torch.ops.tiles import route_tiles
+    ny, nx = px.shape
+    rt = route_tiles(px, py, ny=ny, nx=nx, order=order, wy=wy,
+                     retry_tiles=retry_tiles, ladder=ladder, **bounds)
+    n = rt.gy * rt.gx
+    out = torch.zeros((nf, rt.gy * 8, rt.gx * 128), dtype=CW.dtype,
+                      device=px.device)
+    overflow = rt.overflow.clone()
+    fns = WI.kernel_functions("cuda")
+    tier = torch.full((n,), -1, dtype=torch.int32, device=px.device)
+    flag = torch.zeros((n,), dtype=torch.int32, device=px.device)
+    t = 0
+    for ln in WI.spline_launches(rt, CW.reshape(-1, ny, nx), f0=f0, nf=nf,
+                                 order=order, wy=wy):
+        f = torch.full((ln.n_flags,), -1, dtype=torch.int32,
+                       device=px.device)
+        ln.run(fns[ln.kernel], out, f, overflow)
+        if ln.mode == "dense":
+            flag += f
+        elif ln.kernel == "sub_window_gather":
+            tier[rt.liveS.reshape(-1) != 0] = -2
+            flag += (f.reshape(n, 4) << torch.arange(
+                4, dtype=torch.int32, device=f.device)).sum(dim=1).int()
+        else:
+            live = int(rt.tiers[t].count)
+            sel = rt.tiers[t].sel[:live].long()
+            tier[sel] = t
+            flag[sel] += f[:live]
+            t += 1
+    return {"out": out, "tier": tier, "flags": flag, "overflow": overflow,
+            "fitA": rt.fitA.reshape(-1)}
+
 
 
 def compare_launches(runs, dtype, device):
@@ -324,10 +427,12 @@ def spread(ms):
     return float(np.median(ms)), min(ms), max(ms)
 
 
-def time_launches(runs, dtype, device, reps, plain_reps):
+def time_launches(runs, dtype, device, reps, plain_reps, kinds=None):
     """Trial times (``event_ms``) of one gather group's launches of each
     kernel name, for the kernels and for the plain versions, and under
-    ``name, "device"`` the kernels' ``device_us``."""
+    ``name, "device"`` the kernels' ``device_us``.  ``kinds``: {kind:
+    calls per trial} to time instead, each kind but "plain" with its
+    ``device_us`` under ``name, kind + " device"``."""
     import torch
     bufs = [(name, torch.zeros(shape, dtype=dtype, device=device),
              # the main path asks the ladder for no levels
@@ -336,17 +441,20 @@ def time_launches(runs, dtype, device, reps, plain_reps):
              torch.zeros((1,), dtype=torch.int32, device=device), run)
             for name, shape, n, run in runs]
     times = {}
-    for kind, n in (("cuda", reps), ("plain", plain_reps)):
-        for name in WINDOW_KERNELS:
+    for kind, n in (kinds or {"cuda": reps, "plain": plain_reps}).items():
+        for name in dict.fromkeys(b[0] for b in bufs):
             mine = [b for b in bufs if b[0] == name]
+            if kind == "unstaged" and name == "pole_ladder_gather":
+                continue
 
             def group(mine=mine, kind=kind):
                 for _, o, f, v, run in mine:
                     run(kind, o, f, v)
             times[name, kind] = event_ms(group, n)
-            if kind == "cuda":
-                times[name, "device"] = device_us(
-                    group, n, name.split(".")[0].replace("_gather", "_kernel"))
+            if kind != "plain":
+                times[name, "device" if kind == "cuda" else kind + " device"] \
+                    = device_us(group, n, name.split(".")[0].replace(
+                        "_gather", "_kernel"))
     return times
 
 
@@ -1325,6 +1433,8 @@ def main() -> int:
                   dict(f0=0, nf=4, wy=32, **dfl)),
                  ("shear retry=0 wy=16", pxs, pys,
                   dict(f0=0, nf=2, wy=16, retry_tiles=0, **dfl)),
+                 ("shear, ladder capacities 1-4", pxs, pys,
+                  dict(f0=0, nf=4, wy=32, ladder=CAPPED_LADDER, sort=False)),
                  (f"pole_ladder={FORCED_POLE_LADDER}", pxs, pys,
                   dict(f0=0, nf=4, wy=32, pole_ladder=FORCED_POLE_LADDER,
                        **dfl)),
@@ -1351,12 +1461,72 @@ def main() -> int:
                       f"slots flagged={nflag} bit-identical={err == 0.0}")
                 window_err[kname] = max(window_err.get(kname, 0.0), err) \
                     if name == "float32" else window_err.get(kname, 0.0)
+            # the spline tiers as one routed gather, at each CTA shape:
+            # against its plain version, against the launches it replaces,
+            # and its unflagged tiles against K1 on the spline rows
+            tkw = {k: v for k, v in kw.items() if k != "pole_ladder"}
+            old = old_spline_group(CWd, px, py, bounds=bounds, **tkw)
+            plain, _ = tier_run(CWd, px, py, "plain", bounds=bounds, **tkw)
+            k1 = cuda_interp.cuda_interp_multi(
+                Wd, CWd, px, py, f0=kw["f0"], nf=kw["nf"], order=ORDER,
+                **bounds)[0]
+            for threads in TIER_SHAPES:
+                new, _ = tier_run(CWd, px, py, "cuda", threads=threads,
+                                  bounds=bounds, **tkw)
+                torch.cuda.synchronize()
+                tier = new["plan"][:, 0]
+                gy_, gx_ = new["out"].shape[1] // 8, new["out"].shape[2] // 128
+                same_p, err, where = same_values(new["out"], plain["out"])
+                eq_p = all(torch.equal(new[k], plain[k])
+                           for k in ("plan", "fits", "flags", "overflow"))
+                same_o = same_values(new["out"], old["out"])[0]
+                eq_o = (torch.equal(tier, old["tier"])
+                        and torch.equal(new["flags"], old["flags"])
+                        and torch.equal(new["overflow"], old["overflow"])
+                        and torch.equal((new["fits"] >> 16) & 1,
+                                        old["fitA"].int()))
+                clean = (new["flags"] == 0).reshape(gy_, 1, gx_, 1).expand(
+                    gy_, 8, gx_, 128).reshape(gy_ * 8, gx_ * 128)[
+                        ORDER:ny - ORDER, :nx]
+                same_k = same_values(
+                    torch.where(clean, new["out"][:, ORDER:ny - ORDER, :nx],
+                                0.0),
+                    torch.where(clean, k1[:, ORDER:ny - ORDER], 0.0))[0]
+                tcounts = [int((tier == t).sum())
+                           for t in range(-2, len(tkw["ladder"]))]
+                check(same_p and eq_p and same_o and eq_o and same_k,
+                      f"{name} {label} tier_window_gather {threads} threads: "
+                      f"identical to plain={same_p} (max|d|={err:.3e} at "
+                      f"{where}), plan, fits, flags, overflow equal={eq_p}; "
+                      f"identical to the old launches={same_o}, tier, flags, "
+                      f"overflow, fitA equal={eq_o}; unflagged tiles "
+                      f"identical to K1={same_k}; overflow=0x"
+                      f"{int(new['overflow']):x} tiles flagged="
+                      f"{int((new['flags'] > 0).sum())} A-sub, A, ladder="
+                      f"{tcounts}")
+                if name == "float32":
+                    window_err["tier_window_gather"] = max(
+                        window_err.get("tier_window_gather", 0.0), err)
+            if label.startswith("shear, ladder capacities"):
+                caps = [c for _, _, c in CAPPED_LADDER]
+                ovf = int(new["overflow"])
+                unfit = (new["fits"] >> 16) == 0
+                want = [int((unfit & ((new["fits"] >> t) & 1 > 0)).sum())
+                        for t in range(len(caps))]
+                full = [t for t, c in enumerate(caps)
+                        if tcounts[2 + t] == c < want[t]]
+                left = int((unfit & (tier == -1)).sum())
+                check(len(full) >= 3 and left > 0 and ovf & 2 != 0,
+                      f"{name} capacities bind: ladder counts {tcounts[2:]} "
+                      f"of capacities {caps}, tiles each tier holds {want}; "
+                      f"tiers full with tiles turned away {full}; {left} "
+                      f"unfit tiles left to tier A, bit 1 raised: 0x{ovf:x}")
             if label.startswith("whirl"):
                 full = [n for n, (_, wx, _) in zip(counts["tiers"],
                                                    kw["ladder"]) if wx is None]
                 check(any(full), f"{name} {label} fills the full-longitude "
                       f"tiers {full}")
-            if label.startswith("shear"):
+            if label.startswith("shear retry=0"):
                 ovf = res["tile_window_gather.dense"][2]
                 check(ovf & (1 << 2) != 0,
                       f"{name} shear retry=0 wy=16 raises bit 2: 0x{ovf:x}")
@@ -1433,7 +1603,7 @@ def main() -> int:
         f"K1 and settls_step {other_on_b}")
     check(int(overflow_b) == 0, f"blockspec overflow 0x{int(overflow_b):x} "
           f"== 0")
-    on_route = {k: window_launch[k] for k in WINDOW_KERNELS}
+    on_route = {k: window_launch[k] for k in BLOCKSPEC_LAUNCHES}
     off_route = sum(window_launch.values()) - sum(on_route.values())
     check(on_route == BLOCKSPEC_LAUNCHES and off_route + other_on_b == 0,
           f"blockspec launches {json.dumps(on_route)} == "
@@ -1578,10 +1748,64 @@ def main() -> int:
                                     wy=32, bounds=bounds, ladder=SORT_LADDER)
     window_ms = time_launches(runs, torch.float32, dev, reps=50,
                               plain_reps=5)
-    for kname in WINDOW_KERNELS:
+    for kname in (*OLD_KERNELS, "pole_ladder_gather"):
         times[kname] = window_ms[kname, "cuda"]
         plain_times[kname] = window_ms[kname, "plain"]
         dev_us[kname] = window_ms[kname, "device"]
+    # the spline tiers as one routed gather: the group's two launches at
+    # each CTA shape, F=4 (wy 32) and F=2 (wy 64), and device time by kernel
+    spx, spy = sort_binned(px, py)
+    for nf_, wy_ in ((4, 32), (2, 64)):
+        for threads in TIER_SHAPES:
+            _, again = tier_run(CW, spx, spy, "cuda", threads=threads, f0=0,
+                                nf=nf_, wy=wy_, bounds=bounds,
+                                ladder=SORT_LADDER)
+            t_ms = event_ms(again, 50)
+            r_us = device_us(again, 50, "tier_route_kernel")
+            g_us = device_us(again, 50, "tier_gather_kernel")
+            med, lo, hi = spread(t_ms)
+            log(f"  F={nf_} wy={wy_} tier_window_gather, {threads} threads: "
+                f"{med:.4f} ms [{lo:.4f}, {hi:.4f}] a group; device: "
+                f"tier_route_kernel {r_us[0]:.2f} us, tier_gather_kernel "
+                f"{g_us[0]:.2f} us [{card}]")
+            if nf_ == 4 and threads == cuda_window.TIER_THREADS:
+                times["tier_window_gather"] = t_ms
+                dev_us["tier_window_gather"] = ((r_us[0] + g_us[0]) / 2, 2)
+    _, again = tier_run(CW, spx, spy, "plain", f0=0, nf=4, wy=32,
+                        bounds=bounds, ladder=SORT_LADDER)
+    plain_times["tier_window_gather"] = event_ms(again, 5)
+    # the staged kernels beside the same kernels reading through L2, F=4 and
+    # F=2 groups at the main path's layout, in turns; and the torch launches
+    # that routing alone issues for a group
+    from lagrangiancoherence_tpu_torch.ops.tiles import route_tiles
+    from lagrangiancoherence_tpu_torch.ops.window_interp import \
+        windowed_interp_multi
+    for nf_, wy_ in ((4, 32), (2, 64)):
+        runs_, _ = window_launches(W, CW, spx, spy, f0=0, nf=nf_, wy=wy_,
+                                   bounds=bounds, ladder=SORT_LADDER)
+        probe = time_launches(runs_, torch.float32, dev, 50, 0, kinds={
+            "cuda": 50, "unstaged": 50})
+        for kname in OLD_KERNELS:
+            parts = []
+            for kind, dkey in (("cuda", "device"),
+                               ("unstaged", "unstaged device")):
+                med, lo, hi = spread(probe[kname, kind])
+                us, per_call = probe[kname, dkey]
+                parts.append(f"{'staged' if kind == 'cuda' else kind} "
+                             f"{med:.4f} ms [{lo:.4f}, {hi:.4f}], device "
+                             f"{us:.2f} us x {per_call:g}")
+            log(f"  F={nf_} wy={wy_} {kname}: " + "; ".join(parts)
+                + f" [{card}]")
+    n_route = profile_field(lambda: route_tiles(
+        spx, spy, ny=ny, nx=nx, order=ORDER, wy=32, ladder=SORT_LADDER,
+        **bounds))["kernels"]
+    n_group = profile_field(lambda: windowed_interp_multi(
+        W, CW, spx, spy, order=ORDER, wy=32, f0=0, nf=4, ladder=SORT_LADDER,
+        skip_pole=True, kernel="cuda", **bounds))["kernels"]
+    log(f"  torch launches of one F=4 gather group: route_tiles alone "
+        f"{n_route}, the spline tiers' windowed_interp_multi call {n_group} "
+        f"[{card}]")
+
     # bounds: each input byte read once and each output byte written once,
     # and the operations, for one step (settls_step) or one F=4 group at
     # the layout each route gives it; window kernels count the parcels their
@@ -1610,6 +1834,13 @@ def main() -> int:
         else:
             work[kname] = (24 * n + 4 * plane * n / n_all + flags_b[kname],
                            n * gather_ops(4))
+    # the routed gather: every tile's folds read once, its values written
+    # once, the four coefficient planes once, and the per-tile plan, fits
+    # and flag words and the overflow word
+    n_tiles = -(-ny // 8) * -(-nx // 128)
+    work["tier_window_gather"] = (
+        (8 + 16) * n_tiles * TILE + 4 * plane + 40 * n_tiles + 4,
+        n_tiles * TILE * tier_ops(4))
     bnd = {k: bound(*w) for k, w in work.items()}
     log("  K1 F=2 group (not timed): " + bound(
         16 * n_all + 2 * plane, n_all * gather_ops(2))[2])
@@ -1662,10 +1893,13 @@ def main() -> int:
     empty_us = spread(turn_ms["empty launch"])[0] * 1e3
 
     per_field = {"settls_step": NT - 1, "spline_gather": k1_launches,
-                 **window_launch}
+                 **dict.fromkeys(OLD_KERNELS, 0), **window_launch,
+                 "tier_window_gather":
+                 window_launch["tier_window_gather.route"]
+                 + window_launch["tier_window_gather.gather"]}
     ms, plain_ms = {}, {}
     for kname in ["settls_step", "K1 loop step", "spline_gather",
-                  *WINDOW_KERNELS]:
+                  *OLD_KERNELS, *WINDOW_KERNELS]:
         ms[kname], lo, hi = spread(times[kname])
         line = (f"{kname}: {ms[kname]:.4f} ms [{lo:.4f}, {hi:.4f}] (median "
                 f"[min, max] of {len(times[kname])} trials)")
@@ -1771,7 +2005,7 @@ def main() -> int:
                step_err),
         record("spline_gather", KERNEL_SOURCE, KERNEL_REPLACES, k1_launches,
                gather_err["float32"])] + [
-        record(kname, WINDOW_SOURCE, replaces, window_launch[kname],
+        record(kname, WINDOW_SOURCE, replaces, per_field[kname],
                window_err[kname])
         for kname, replaced in WINDOW_KERNELS.items()
         for replaces in replaced]}))

@@ -13,7 +13,8 @@ import numpy as np
 
 EARTH_RADIUS = 6371000.0  # metres, matches LagrangianCoherence LCS/LCS.py:23
 
-__all__ = ["EARTH_RADIUS", "Grid", "global_quarter_degree_grid"]
+__all__ = ["EARTH_RADIUS", "Grid", "global_half_degree_grid",
+           "global_quarter_degree_grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +84,14 @@ class Grid:
 
     def __eq__(self, other):
         return isinstance(other, Grid) and self._key() == other._key()
+
+
+def global_half_degree_grid() -> Grid:
+    """The reference's common global grid for ``isglobal`` runs
+    (LagrangianCoherence LCS/LCS.py:107-108): 360 latitudes, 721 longitudes."""
+    lats = np.linspace(-89.75, 89.75, 180 * 2)
+    lons = np.linspace(-180, 179.5, 360 * 2 + 1)
+    return Grid(lats=lats, lons=lons, cyclic_x=True)
 
 
 def global_quarter_degree_grid() -> Grid:

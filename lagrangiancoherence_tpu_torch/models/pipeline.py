@@ -30,19 +30,25 @@ class FTLEPipeline(nn.Module):
     models/settls.py and models/ftle.py for the stage contracts.  ``kernel``
     is ``"auto"``, ``"cuda"`` or ``"torch"`` (``settls.resolve_kernel``);
     ``engine`` is ``"auto"``, ``"dma-all"`` or ``"blockspec"``
-    (``settls.resolve_engine``).  ``device``: where the state lives and the
+    (``settls.resolve_engine``); ``rebin`` (``"sort"`` or False) is
+    ``settls.settls_scan``'s.  JAX's ``pallas_wy``, ``pallas_wx``,
+    ``pallas_retry_tiles`` and ``pallas_retry_wy`` are constants here
+    (``settls.WY``, ``tiles.WX``, and the ladders of ``ops/tiles.py``).
+    ``device``: where the state lives and the
     pipeline computes; default: the CUDA card (``devices.resolve_device``);
     pass ``device="cpu"`` for the CPU.
     """
 
     def __init__(self, grid, *, settls_order: int = 0, interp_order: int = 3,
                  sigma=None, compat: bool = True, kernel: str = "auto",
-                 engine: str = "auto", dtype: torch.dtype = torch.float64,
-                 device=None):
+                 engine: str = "auto", rebin="sort",
+                 dtype: torch.dtype = torch.float64, device=None):
         super().__init__()
         device = resolve_device(device)
         resolve_kernel(kernel, device, interp_order)   # fail at build time
         resolve_engine(engine)
+        if rebin not in ("sort", False):
+            raise ValueError(f"rebin={rebin!r}: expected 'sort' or False")
         self.grid = grid
         self.settls_order = settls_order
         self.interp_order = interp_order
@@ -50,6 +56,7 @@ class FTLEPipeline(nn.Module):
         self.compat = compat
         self.kernel = kernel
         self.engine = engine
+        self.rebin = rebin
         for name, t in grid_state(grid, interp_order, dtype=dtype,
                                   device=device).items():
             self.register_buffer(name, t)
@@ -78,8 +85,8 @@ class FTLEPipeline(nn.Module):
         px, py, overflow = parcel_propagation_core(
             u, v, timestep, self.grid, settls_order=self.settls_order,
             interp_order=self.interp_order, kernel=self.kernel,
-            engine=self.engine, return_overflow=True, device=device,
-            state=state)
+            engine=self.engine, rebin=self.rebin, return_overflow=True,
+            device=device, state=state)
         norm = ftle_norm(flowmap_gradient(px, py, self.grid, sigma=self.sigma),
                          compat=self.compat)
         if return_overflow:
@@ -89,9 +96,14 @@ class FTLEPipeline(nn.Module):
 
 def ftle_pipeline(u, v, timestep, grid, *, settls_order: int = 0,
                   interp_order: int = 3, sigma=None, compat: bool = True,
-                  kernel: str = "auto", engine: str = "auto",
+                  kernel: str = "auto", engine: str = "auto", rebin="sort",
                   return_overflow: bool = False, device=None):
     """(T, ny, nx) winds → (ny, nx) FTLE norm, with ``u``'s dtype.
+
+    ``rebin`` (``"sort"`` or False) applies to ``engine="blockspec"``
+    (``settls.settls_scan``).  JAX's ``pallas_wy``, ``pallas_wx``,
+    ``pallas_retry_tiles`` and ``pallas_retry_wy`` are constants in the
+    port (``settls.WY``, ``tiles.WX``, and the ladders of ``ops/tiles.py``).
 
     ``device``: where to compute; default: the device of ``u`` or ``v`` if
     a tensor, else the CUDA card (``devices.resolve_device``).  With
@@ -102,5 +114,5 @@ def ftle_pipeline(u, v, timestep, grid, *, settls_order: int = 0,
     model = FTLEPipeline(grid, settls_order=settls_order,
                          interp_order=interp_order, sigma=sigma,
                          compat=compat, kernel=kernel, engine=engine,
-                         dtype=u.dtype, device=u.device)
+                         rebin=rebin, dtype=u.dtype, device=u.device)
     return model(u, v, timestep, return_overflow=return_overflow)

@@ -45,6 +45,8 @@
 // its packed operand in one 16-byte load, the 4 * NF raw cells loaded
 // together through the read-only path (the home rows sit in L2), no
 // staging: 40 CTAs of 256 threads at the flagship's 2 x 5 slots.
+#include <limits.h>
+
 #include "gather_math.cuh"
 
 namespace {
@@ -277,6 +279,339 @@ sub_window_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
   finish_flag(bad, flags, slot, overflow, bit);
 }
 
+// ---------------------------------------------------------------------------
+// The spline tiers in one routed gather: tier_window_gather
+// ---------------------------------------------------------------------------
+//
+// Two launches a gather group replace tier A, tier A-sub and the ladder's
+// list launches, and with them the torch ops that routed tiles to them.
+//
+// tier_route_kernel, one CTA a home tile, every tile: block reductions give
+// the tile's window facts (the min/max of its parcels' unwrapped floors
+// anchored at the tile's first fold, the same per 32-column quarter anchored
+// at the quarter's first fold, the min/max of the plain fold floors), and
+// one thread evaluates from them, in the integer arithmetic of
+// ops/tiles.py route_tiles, whether the tile fits tier A-sub's four quarter
+// windows, tier A's window, and each ladder spec.  The ladder's capacities
+// need tiles in index order, so the last CTA to arrive (a __threadfence and
+// an atomic ticket) runs the three-pass first fit over all tiles: in pass p
+// a tile not yet taken tries the p-th ladder tier that fits it, and is
+// taken if its rank among the tiles trying that tier (in index order, after
+// the tier's count so far) is under the tier's capacity; one warp a tier
+// walks the tiles 32 at a time with a ballot.  It leaves each tile's choice
+// and window in `plan` (kPlanW ints a tile: tier, y0, x0 of quarters 0..3,
+// wy, wx or 0 for full longitude) and ORs bit 1 if a tile fits nothing.
+//
+// tier_gather_kernel, one CTA a home tile: each thread gathers its parcels
+// against the tile's window (tier A-sub: its quarter's) with
+// window_parcel, reading the stack through L2; a full-longitude tier is a
+// branch the whole CTA takes.  A tile whose taps leave its window sets its
+// flag (tier A-sub: bit q for quarter q) and ORs bit 2 (tier A, A-sub) or
+// 5 + t (ladder tier t) into the overflow word.
+//
+// What bounds them: the folds are read by both (17.9 MB at the flagship, the
+// second time from L2) and the gather is K1's: latency of 16 * NF dependent-
+// free loads a parcel from an L2-resident window.  Every CTA is live (1,092
+// at the flagship, 8 a multiprocessor), nothing is staged, and no torch op
+// routes.
+
+constexpr int kMaxSpecs = 16;        // ladder tiers
+constexpr int kRouteThreads = 512;   // one warp a ladder tier in the plan
+constexpr int kPlanW = 8;            // ints a tile in `plan`
+constexpr int kScratchW = 3;         // ymn - slop, xmn - slop, tier to try
+constexpr int kFitA = 16, kFitS = 17;   // bits of a tile's `fits` word
+static_assert(kMaxSpecs * 32 <= kRouteThreads, "one warp a ladder tier");
+
+struct TierLadder {
+  int n;
+  int wy[kMaxSpecs];
+  int wx[kMaxSpecs];    // 0: full longitude
+  int cap[kMaxSpecs];
+};
+
+struct TierGeom {
+  int ny, nx, ny_t, nx_t;
+  int ypad, xpad;       // JAX's padded coefficient geometry
+  int wy, wx;           // tier A's window
+  int m;                // tap reach below the floor: 2 at order 3, else 1
+  int sub;              // tier A-sub and bit 1 are on
+};
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// start (unpadded) of the `gran`-granular window of width w that routing
+// gives floors from `lo_slop` = min - slop, clamped to the padded geometry
+__device__ __forceinline__ int window_start(int lo_slop, int pad, int gran,
+                                            int limit, int w) {
+  const int s = max(floor_div(lo_slop + pad, gran) * gran, 0);
+  return min(s, floor_div(limit - w, gran) * gran) - pad;
+}
+
+// whether floors [mn, mx] with their tap reach fit [start, start + w)
+__device__ __forceinline__ bool window_holds(int mn, int mx, int m, int ulp,
+                                             int start, int w) {
+  return mn - m - ulp >= start && mx + 2 + ulp <= start + w - 1;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRouteThreads)
+tier_route_kernel(const T* __restrict__ folds, int* __restrict__ plan,
+                  int* __restrict__ fits, int* __restrict__ scratch,
+                  int* __restrict__ overflow, unsigned* __restrict__ ticket,
+                  const TierGeom g, const TierLadder lad) {
+  constexpr int nwarps = kRouteThreads / 32;
+  constexpr int nq = 10;   // y, x, plain y, plain x, quarter x: min and max
+  __shared__ int s_red[nq][nwarps];
+  __shared__ int s_last;
+  const int tile = blockIdx.x;
+  const int n_tiles = gridDim.x;
+  const int gx = g.nx_t / kTileC;
+  const int iy = tile / gx;
+  const int jx = tile - gx * iy;
+  const int64_t tplane = static_cast<int64_t>(g.ny_t) * g.nx_t;
+  const int64_t corner = static_cast<int64_t>(iy) * kTileR * g.nx_t +
+                         static_cast<int64_t>(jx) * kTileC;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q = (threadIdx.x % kTileC) / kSubW;   // this thread's quarter
+  const T ya = folds[corner];
+  const T xa = folds[tplane + corner];
+  const T xqa = folds[tplane + corner + q * kSubW];
+  int v[nq];
+#pragma unroll
+  for (int i = 0; i < nq; i += 2) {
+    v[i] = INT_MAX;
+    v[i + 1] = INT_MIN;
+  }
+  for (int p = threadIdx.x; p < kTile; p += kRouteThreads) {
+    const int64_t at = corner + static_cast<int64_t>(p / kTileC) * g.nx_t +
+                       p % kTileC;
+    const T yf = folds[at];
+    const T xf = folds[tplane + at];
+    const int fy = to_index(floor(yf));
+    const int fx = to_index(floor(xf));
+    const int w[nq / 2] = {fy + g.ny * unwrap_k(yf, ya, g.ny),
+                           fx + g.nx * unwrap_k(xf, xa, g.nx), fy, fx,
+                           fx + g.nx * unwrap_k(xf, xqa, g.nx)};
+#pragma unroll
+    for (int i = 0; i < nq / 2; ++i) {
+      v[2 * i] = min(v[2 * i], w[i]);
+      v[2 * i + 1] = max(v[2 * i + 1], w[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < nq; i += 2) {
+    const int lo = __reduce_min_sync(0xffffffffu, v[i]);
+    const int hi = __reduce_max_sync(0xffffffffu, v[i + 1]);
+    if (lane == 0) {
+      s_red[i][warp] = lo;
+      s_red[i + 1][warp] = hi;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int r[8];             // ymn ymx xmn xmx, plain ymn ymx xmn xmx
+    int x2mn[4], x2mx[4];
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      r[i] = INT_MAX;
+      r[i + 1] = INT_MIN;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x2mn[k] = INT_MAX;
+      x2mx[k] = INT_MIN;
+    }
+    for (int w = 0; w < nwarps; ++w) {
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        r[i] = min(r[i], s_red[i][w]);
+        r[i + 1] = max(r[i + 1], s_red[i + 1][w]);
+      }
+      // warp w holds columns [32 * (w % 4), 32 * (w % 4) + 32)
+      x2mn[w % 4] = min(x2mn[w % 4], s_red[8][w]);
+      x2mx[w % 4] = max(x2mx[w % 4], s_red[9][w]);
+    }
+    const int ymn = r[0], ymx = r[1], xmn = r[2], xmx = r[3];
+    // tiles within a cell of the mirror-remap zones take one more cell
+    const bool edge = r[4] <= 1 || r[5] >= g.ny - 3 || r[6] <= 1 ||
+                      r[7] >= g.nx - 3;
+    const int ulp = edge ? 2 : 1;
+    const int slop = g.m + ulp;
+    const int ylim = g.ny + 2 * g.ypad;
+    const int xlim = g.nx + 2 * g.xpad - kTileC;
+    const int y0a = window_start(ymn - slop, g.ypad, 8, ylim, g.wy);
+    const int x0a = window_start(xmn - slop, g.xpad, kSubW, xlim, g.wx);
+    const bool oky = window_holds(ymn, ymx, g.m, ulp, y0a, g.wy);
+    const bool fit_a = oky && window_holds(xmn, xmx, g.m, ulp, x0a, g.wx);
+    int x0s[4];
+    bool fit_s = g.sub && oky;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x0s[k] = window_start(x2mn[k] - slop, g.xpad, kSubW, xlim, kTileC);
+      fit_s = fit_s && window_holds(x2mn[k], x2mx[k], g.m, ulp, x0s[k],
+                                    kTileC);
+    }
+    int word = (fit_a ? 1 << kFitA : 0) | (fit_s ? 1 << kFitS : 0);
+#pragma unroll
+    for (int t = 0; t < kMaxSpecs; ++t) {
+      if (t < lad.n) {
+        const int wxe = lad.wx[t] == 0 ? g.wx : lad.wx[t];
+        const int y0 = window_start(ymn - slop, g.ypad, 8, ylim, lad.wy[t]);
+        const int x0 = window_start(xmn - slop, g.xpad, kSubW, xlim, wxe);
+        const bool ok = window_holds(ymn, ymx, g.m, ulp, y0, lad.wy[t]) &&
+                        (lad.wx[t] == 0 ||
+                         window_holds(xmn, xmx, g.m, ulp, x0, wxe));
+        word |= ok ? 1 << t : 0;
+      }
+    }
+    int* row = plan + static_cast<int64_t>(tile) * kPlanW;
+    row[0] = fit_s ? -2 : -1;
+    row[1] = y0a;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) row[2 + k] = fit_s ? x0s[k] : (k ? 0 : x0a);
+    row[6] = g.wy;
+    row[7] = fit_s ? kTileC : g.wx;
+    fits[tile] = word;
+    scratch[tile * kScratchW] = ymn - slop;
+    scratch[tile * kScratchW + 1] = xmn - slop;
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(n_tiles - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  // the last CTA: every tile's facts are written; plan the ladder
+  __threadfence();
+  __shared__ int s_wy[kMaxSpecs], s_wx[kMaxSpecs], s_cap[kMaxSpecs];
+  __shared__ int s_uncovered;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int t = 0; t < kMaxSpecs; ++t) {
+      s_wy[t] = lad.wy[t];
+      s_wx[t] = lad.wx[t];
+      s_cap[t] = lad.cap[t];
+    }
+    s_uncovered = 0;
+  }
+  __syncthreads();
+  volatile int* vplan = plan;
+  volatile int* vfits = fits;
+  volatile int* vscr = scratch;
+  const unsigned base_bits = (1u << kFitA) | (1u << kFitS);
+  const unsigned spec_bits = (1u << kMaxSpecs) - 1u;
+  int cnt = 0;            // warp t: tiles tier t has taken so far
+  for (int pass = 0; pass < min(3, lad.n); ++pass) {
+    // the tier each tile tries in this pass: the pass-th that fits it
+    for (int i = threadIdx.x; i < n_tiles; i += kRouteThreads) {
+      const unsigned w = static_cast<unsigned>(vfits[i]);
+      int t = -1;
+      if ((w & base_bits) == 0 && vplan[i * kPlanW] < 0) {
+        unsigned e = w & spec_bits;
+        for (int k = 0; k < pass; ++k) e &= e - 1;   // drop the tried ones
+        t = e ? __ffs(e) - 1 : -1;
+      }
+      vscr[i * kScratchW + 2] = t;
+    }
+    __syncthreads();
+    if (warp < lad.n) {
+      int seen = 0;       // tiles before this chunk that try tier `warp`
+      for (int i0 = 0; i0 < n_tiles; i0 += 32) {
+        const int i = i0 + lane;
+        const bool tries = i < n_tiles && vscr[i * kScratchW + 2] == warp;
+        const unsigned b = __ballot_sync(0xffffffffu, tries);
+        const int rank = cnt + seen + __popc(b & ((1u << lane) - 1u));
+        if (tries && rank < s_cap[warp]) vplan[i * kPlanW] = warp;
+        seen += __popc(b);
+      }
+      cnt += min(seen, max(s_cap[warp] - cnt, 0));
+    }
+    __syncthreads();
+  }
+  // each taken tile's window; a tile that fits nothing raises bit 1
+  const int ylim = g.ny + 2 * g.ypad;
+  const int xlim = g.nx + 2 * g.xpad - kTileC;
+  bool uncovered = false;
+  for (int i = threadIdx.x; i < n_tiles; i += kRouteThreads) {
+    const int t = vplan[i * kPlanW];
+    if (t >= 0) {
+      const int wy = s_wy[t], wx = s_wx[t];
+      vplan[i * kPlanW + 1] =
+          window_start(vscr[i * kScratchW], g.ypad, 8, ylim, wy);
+      vplan[i * kPlanW + 2] =
+          wx == 0 ? 0
+                  : window_start(vscr[i * kScratchW + 1], g.xpad, kSubW, xlim,
+                                 wx);
+      vplan[i * kPlanW + 6] = wy;
+      vplan[i * kPlanW + 7] = wx;
+    } else if ((static_cast<unsigned>(vfits[i]) & base_bits) == 0) {
+      uncovered = true;
+    }
+  }
+  if (g.sub && uncovered) s_uncovered = 1;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_uncovered) atomicOr(overflow, 1 << 1);
+    *ticket = 0u;         // ready for the next launch
+  }
+}
+
+template <typename T, int ORDER, int NF, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+tier_gather_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
+                   T* __restrict__ out, const int* __restrict__ plan,
+                   int* __restrict__ flags, int* __restrict__ overflow,
+                   int ny, int nx, int ny_t, int nx_t) {
+  static_assert(THREADS % kTileC == 0, "a thread keeps its column");
+  __shared__ int s_flag;
+  const int tile = blockIdx.x;
+  const int* row = plan + static_cast<int64_t>(tile) * kPlanW;
+  const int tier = row[0];
+  const int y0 = row[1];
+  const int wy = row[6], wx = row[7];
+  const bool sub = tier == -2;
+  const int q = (threadIdx.x % kTileC) / kSubW;
+  const int x0 = row[2 + (sub ? q : 0)];
+  const int gx = nx_t / kTileC;
+  const int iy = tile / gx;
+  const int jx = tile - gx * iy;
+  const int64_t tplane = static_cast<int64_t>(ny_t) * nx_t;
+  const int64_t corner = static_cast<int64_t>(iy) * kTileR * nx_t +
+                         static_cast<int64_t>(jx) * kTileC;
+  const T ya = folds[corner];
+  const T xa = folds[tplane + corner + (sub ? q * kSubW : 0)];
+  if (threadIdx.x == 0) s_flag = 0;
+  __syncthreads();
+  bool bad = false;
+  for (int p = threadIdx.x; p < kTile; p += THREADS) {
+    const int64_t at = corner + static_cast<int64_t>(p / kTileC) * nx_t +
+                       p % kTileC;
+    const T yf = folds[at];
+    const T xf = folds[tplane + at];
+    T acc[NF];
+    if (wx == 0) {
+      bad |= window_parcel<T, ORDER, NF, true>(coeffs, nullptr, yf, xf, ya,
+                                               xa, ny, nx, y0, 0, wy, 0, acc);
+    } else {
+      bad |= window_parcel<T, ORDER, NF, false>(coeffs, nullptr, yf, xf, ya,
+                                                xa, ny, nx, y0, x0, wy, wx,
+                                                acc);
+    }
+#pragma unroll
+    for (int f = 0; f < NF; ++f) out[f * tplane + at] = acc[f];
+  }
+  if (__any_sync(0xffffffffu, bad) && (threadIdx.x & 31) == 0)
+    atomicOr(&s_flag, sub ? 1 << q : 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flags[tile] = s_flag;
+    if (s_flag) atomicOr(overflow, 1 << (tier >= 0 ? 5 + tier : 2));
+  }
+}
+
 // A kernel that returns at once: what a launch on this path costs when the
 // device has nothing to do (ops/cuda_window.py empty_launch).
 __global__ void empty_kernel() {}
@@ -492,6 +827,57 @@ int dispatch_sub(const void* coeffs, const void* folds, void* out, void* flags,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, int ORDER, int NF, int THREADS>
+cudaError_t launch_tier(const T* coeffs, const T* folds, T* out, int* plan,
+                        int* fits, int* flags, int* scratch, int* overflow,
+                        unsigned* ticket, int n_tiles, const TierGeom& g,
+                        const TierLadder& lad, cudaStream_t s) {
+  tier_route_kernel<T><<<n_tiles, kRouteThreads, 0, s>>>(
+      folds, plan, fits, scratch, overflow, ticket, g, lad);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tier_gather_kernel<T, ORDER, NF, THREADS><<<n_tiles, THREADS, 0, s>>>(
+      coeffs, folds, out, plan, flags, overflow, g.ny, g.nx, g.ny_t, g.nx_t);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_tier(const void* coeffs, const void* folds, void* out,
+                  void* plan, void* fits, void* flags, void* scratch,
+                  void* overflow, void* ticket, int ny, int nx, int ny_t,
+                  int nx_t, int order, int nf, long long f0, int wy, int wx,
+                  int ypad, int xpad, int sub, int n_specs, const int* specs,
+                  int threads, void* stream) {
+  if (n_specs < 0 || n_specs > kMaxSpecs || ny_t % kTileR || nx_t % kTileC ||
+      ny_t <= 0 || nx_t <= 0 || (n_specs > 0 && specs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TierGeom g{ny, nx, ny_t, nx_t, ypad, xpad, wy, wx, order == 3 ? 2 : 1,
+             sub != 0};
+  TierLadder lad{};
+  lad.n = n_specs;
+  for (int t = 0; t < n_specs; ++t) {
+    lad.wy[t] = specs[3 * t];
+    lad.wx[t] = specs[3 * t + 1];
+    lad.cap[t] = specs[3 * t + 2];
+  }
+  const int n_tiles = ny_t / kTileR * (nx_t / kTileC);
+  const T* c = static_cast<const T*>(coeffs) + static_cast<int64_t>(f0) * ny * nx;
+#define TIER_CASE(O, F, N)                                                     \
+  if (order == O && nf == F && threads == N)                                   \
+    return static_cast<int>(launch_tier<T, O, F, N>(                          \
+        c, static_cast<const T*>(folds), static_cast<T*>(out),                \
+        static_cast<int*>(plan), static_cast<int*>(fits),                     \
+        static_cast<int*>(flags), static_cast<int*>(scratch),                 \
+        static_cast<int*>(overflow), static_cast<unsigned*>(ticket), n_tiles, \
+        g, lad, static_cast<cudaStream_t>(stream)));
+#define TIER_SHAPES(O, F) TIER_CASE(O, F, 256) TIER_CASE(O, F, 512)            \
+  TIER_CASE(O, F, 1024)
+  TIER_SHAPES(3, 4) TIER_SHAPES(3, 2) TIER_SHAPES(1, 4) TIER_SHAPES(1, 2)
+#undef TIER_SHAPES
+#undef TIER_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int dispatch_ladder(const void* raw, const void* pack, void* out,
                     void* overflow, void* levels, int n_slots, int ny, int nx,
@@ -553,6 +939,25 @@ LCS_TILE_ENTRY(tile_window_gather_f64, double)
 LCS_SUB_ENTRY(sub_window_gather_f32, float)
 LCS_SUB_ENTRY(sub_window_gather_f64, double)
 #undef LCS_SUB_ENTRY
+
+// tier_window_gather: both launches of a gather group's spline tiers.
+// `specs` is a host array of n_specs (wy, wx or 0, capacity) ladder tiers;
+// `ticket` a device word that is 0 between launches.
+#define LCS_TIER_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const void* coeffs, const void* folds, void* out,        \
+                      void* plan, void* fits, void* flags, void* scratch,      \
+                      void* overflow, void* ticket, int ny, int nx, int ny_t,  \
+                      int nx_t, int order, int nf, long long f0, int wy,       \
+                      int wx, int ypad, int xpad, int sub, int n_specs,        \
+                      const int* specs, int threads, void* stream) {           \
+    return dispatch_tier<T>(coeffs, folds, out, plan, fits, flags, scratch,    \
+                            overflow, ticket, ny, nx, ny_t, nx_t, order, nf,   \
+                            f0, wy, wx, ypad, xpad, sub, n_specs, specs,       \
+                            threads, stream);                                  \
+  }
+LCS_TIER_ENTRY(tier_window_gather_f32, float)
+LCS_TIER_ENTRY(tier_window_gather_f64, double)
+#undef LCS_TIER_ENTRY
 
 #define LCS_LADDER_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* raw, const void* pack, void* out,            \

@@ -24,19 +24,25 @@ full-longitude tier and the pole windows read the stack through L2.
 """
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
+
 import torch
 
 from . import pole as P
 from . import window_interp as W
 from ._launch import SUFFIX, entry, stream
+from .tiles import TILE_C, TILE_R, WX, coeff_pad_dims
 
-__all__ = ["LAUNCHES", "STAGE_BYTES", "empty_launch", "pole_ladder_gather",
-           "reset_launches", "shared_tensors", "staged", "sub_window_gather",
-           "tile_window_gather"]
+__all__ = ["LAUNCHES", "STAGE_BYTES", "TIER_THREADS", "empty_launch",
+           "pole_ladder_gather", "reset_launches", "shared_tensors", "staged",
+           "sub_window_gather", "tier_window_gather", "tile_window_gather"]
 
-LAUNCHES = {"tile_window_gather.dense": 0, "tile_window_gather.list": 0,
+LAUNCHES = {"tier_window_gather.route": 0, "tier_window_gather.gather": 0,
+            "tile_window_gather.dense": 0, "tile_window_gather.list": 0,
             "sub_window_gather": 0, "pole_ladder_gather": 0,
             "empty_launch": 0}
+TIER_THREADS = 256            # threads of a tier_gather_kernel CTA
 STAGE_BYTES = 128 * 1024      # the kernels opt in to this much shared memory
 
 
@@ -108,8 +114,9 @@ def _launched(name, rc):
 
 def tile_window_gather(coeffs, folds, out, flags, overflow, y0map, x0map, *,
                        f0, nf, order, wy, wx, bit, live=None, sel=None,
-                       count=None, shared=None):
-    """K2 (see ``window_interp.tile_window_gather_plain``)."""
+                       count=None, shared=None, stage=True):
+    """K2 (see ``window_interp.tile_window_gather_plain``).  ``stage=False``
+    reads the stack through L2 whatever the window's size."""
     if not (coeffs.is_cuda or folds.is_cuda or out.is_cuda):
         return W.tile_window_gather_plain(
             coeffs, folds, out, flags, overflow, y0map, x0map, f0=f0, nf=nf,
@@ -129,7 +136,7 @@ def tile_window_gather(coeffs, folds, out, flags, overflow, y0map, x0map, *,
         raise ValueError(f"{name}: out {tuple(out.shape)}, live {live}")
     n_slots = ny_t // 8 * (nx_t // 128) if dense else sel.shape[0]
     stage = (nf * wy * wx * out.element_size()
-             if staged(nf, wy, wx, dtype) else 0)
+             if stage and staged(nf, wy, wx, dtype) else 0)
     rc = entry("tile_window_gather", dtype)(
         coeffs.data_ptr(), folds.data_ptr(), out.data_ptr(), flags.data_ptr(),
         _ptr(overflow), y0map.data_ptr(), _ptr(x0map), _ptr(live), _ptr(sel),
@@ -139,8 +146,9 @@ def tile_window_gather(coeffs, folds, out, flags, overflow, y0map, x0map, *,
 
 
 def sub_window_gather(coeffs, folds, out, flags, overflow, y0map, x0q, live,
-                      *, f0, nf, order, wy, bit, shared=None):
-    """K3 (see ``window_interp.sub_window_gather_plain``)."""
+                      *, f0, nf, order, wy, bit, shared=None, stage=True):
+    """K3 (see ``window_interp.sub_window_gather_plain``).  ``stage=False``
+    reads the stack through L2."""
     if not (coeffs.is_cuda or folds.is_cuda or out.is_cuda):
         return W.sub_window_gather_plain(
             coeffs, folds, out, flags, overflow, y0map, x0q, live, f0=f0,
@@ -154,13 +162,71 @@ def sub_window_gather(coeffs, folds, out, flags, overflow, y0map, x0q, live,
         raise ValueError(f"{name}: order {order}, fields [{f0}, {f0 + nf}) "
                          f"of {nfields}")
     stage = nf * wy * 128 * out.element_size() \
-        if staged(nf, wy, 128, dtype) else 0
+        if stage and staged(nf, wy, 128, dtype) else 0
     rc = entry(name, dtype)(
         coeffs.data_ptr(), folds.data_ptr(), out.data_ptr(), flags.data_ptr(),
         _ptr(overflow), y0map.data_ptr(), x0q.data_ptr(), live.data_ptr(),
         ny_t // 8 * (nx_t // 128), ny, nx, ny_t, nx_t, order, nf, f0, wy, bit,
         stage, stream(index))
     _launched(name, rc)
+
+
+@lru_cache(maxsize=64)
+def _ladder_specs(ladder: tuple):
+    """The host array of (wy, wx or 0, capacity) that the entry point
+    reads its ladder from."""
+    flat = [v or 0 for spec in ladder for v in spec]
+    return (ctypes.c_int * max(len(flat), 1))(*flat)
+
+
+@lru_cache(maxsize=8)
+def _ticket(index: int) -> torch.Tensor:
+    """The route kernel's arrival counter on device ``index``: zero between
+    launches (the last CTA to arrive resets it), so launches that share it
+    must be ordered on one stream."""
+    return torch.zeros((1,), dtype=torch.int32,
+                       device=torch.device("cuda", index))
+
+
+def tier_window_gather(coeffs, folds, out, plan, fits, flags, overflow, *,
+                       f0, nf, order, wy, ladder, sub, threads=TIER_THREADS):
+    """The spline tiers of a gather group in two launches (see
+    ``window_interp.tier_window_gather_plain``): ``tier_route_kernel``
+    routes every tile, ``tier_gather_kernel`` gathers it."""
+    if not (coeffs.is_cuda or folds.is_cuda or out.is_cuda):
+        return W.tier_window_gather_plain(
+            coeffs, folds, out, plan, fits, flags, overflow, f0=f0, nf=nf,
+            order=order, wy=wy, ladder=ladder, sub=sub)
+    name = "tier_window_gather"
+    dtype, index = _check(name, (coeffs, folds, out),
+                          (plan, fits, flags, overflow))
+    nfields, ny, nx = coeffs.shape
+    _, ny_t, nx_t = folds.shape
+    n_tiles = ny_t // TILE_R * (nx_t // TILE_C)
+    ladder = tuple(tuple(spec) for spec in ladder)
+    if (order not in (1, 3) or nf not in (2, 4) or f0 < 0
+            or f0 + nf > nfields or len(ladder) > W.MAX_TIERS):
+        raise ValueError(f"{name}: order {order}, fields [{f0}, {f0 + nf}) "
+                         f"of {nfields}, {len(ladder)} ladder tiers")
+    if (folds.shape[0] != 2 or ny_t % TILE_R or nx_t % TILE_C
+            or out.shape != (nf, ny_t, nx_t)
+            or plan.shape != (n_tiles, W.PLAN_W) or fits.numel() != n_tiles
+            or flags.numel() != n_tiles or overflow.numel() != 1):
+        raise ValueError(f"{name}: folds {tuple(folds.shape)}, out "
+                         f"{tuple(out.shape)}, plan {tuple(plan.shape)}, "
+                         f"fits, flags or overflow")
+    ypad, xpad = coeff_pad_dims(ny, nx)
+    scratch = torch.empty((n_tiles, 3), dtype=torch.int32, device=out.device)
+    rc = entry(name, dtype)(
+        coeffs.data_ptr(), folds.data_ptr(), out.data_ptr(), plan.data_ptr(),
+        fits.data_ptr(), flags.data_ptr(), scratch.data_ptr(),
+        overflow.data_ptr(), _ticket(index).data_ptr(), ny, nx, ny_t, nx_t,
+        order, nf, f0, wy, WX, ypad, xpad, int(bool(sub)), len(ladder),
+        _ladder_specs(ladder), threads, stream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES["tier_window_gather.route"] += 1
+    LAUNCHES["tier_window_gather.gather"] += 1
 
 
 def _ladder_launch(name, raw, pack, out, overflow, levels, f0, nf, ladder,

@@ -3,8 +3,8 @@
 Counterpart of ``lagrangiancoherence_tpu/ops/filters.py``, used for the
 optional departure-map smoothing (LagrangianCoherence LCS/LCS.py:187-190).
 scipy defaults replicated: ``truncate=4.0`` (radius =
-int(4*sigma + 0.5)), ``mode='reflect'`` (symmetric edge padding), float64
-kernel taps.
+int(truncate*sigma + 0.5)), ``mode='reflect'`` (symmetric edge padding),
+float64 kernel taps.
 """
 from __future__ import annotations
 
@@ -16,13 +16,10 @@ import torch
 __all__ = ["gaussian_kernel1d", "gaussian_filter"]
 
 
-TRUNCATE = 4.0   # scipy's default
-
-
 @lru_cache(maxsize=32)
-def gaussian_kernel1d(sigma: float) -> np.ndarray:
+def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """scipy's _gaussian_kernel1d for order=0: normalised exp(-x^2/2sigma^2)."""
-    radius = int(TRUNCATE * sigma + 0.5)
+    radius = int(truncate * sigma + 0.5)
     x = np.arange(-radius, radius + 1, dtype=np.float64)
     phi = np.exp(-0.5 * (x / sigma) ** 2)
     phi = phi / phi.sum()
@@ -52,8 +49,9 @@ def _correlate1d_reflect(arr: torch.Tensor, taps: np.ndarray,
     return out
 
 
-def gaussian_filter(arr: torch.Tensor, sigma: float) -> torch.Tensor:
+def gaussian_filter(arr: torch.Tensor, sigma: float,
+                    truncate: float = 4.0) -> torch.Tensor:
     """2-D Gaussian smoothing over the trailing two axes, scipy-compatible."""
-    taps = gaussian_kernel1d(float(sigma))
+    taps = gaussian_kernel1d(float(sigma), truncate)
     out = _correlate1d_reflect(arr, taps, dim=arr.ndim - 2)
     return _correlate1d_reflect(out, taps, dim=arr.ndim - 1)

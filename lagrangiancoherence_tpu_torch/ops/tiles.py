@@ -31,7 +31,8 @@ from .interp import _fold_coord_wrap, _to_index, scale_positions
 
 __all__ = ["DEFAULT_LADDER", "N_SUB", "POLE_PAD", "Routing", "SORT_LADDER",
            "SUB_W", "TILE_C", "TILE_R", "Tier", "WX", "X_GRAN",
-           "coeff_pad_dims", "device_ints", "route_tiles", "unwrap_k"]
+           "capped_ladder", "coeff_pad_dims", "device_ints", "route_tiles",
+           "tile_folds", "unwrap_k"]
 
 TILE_R = 8          # home rows per tile
 TILE_C = 128        # home columns per tile
@@ -130,6 +131,40 @@ def pad_tiles(p: torch.Tensor, ny_t: int, nx_t: int) -> torch.Tensor:
     return p
 
 
+def capped_ladder(ny: int, nx: int, ladder=None):
+    """``ladder`` (default ``DEFAULT_LADDER``) as (wy, wx or None,
+    capacity) tiers with the windows cut to JAX's padded geometry."""
+    ypad, xpad = coeff_pad_dims(ny, nx)
+    wy_cap = ((ny + 2 * ypad) // 8) * 8
+    wx_cap = ((nx + 2 * xpad - 128) // 128) * 128
+    return [(min(wy_, wy_cap), None if wx_ is None else min(wx_, wx_cap), cap)
+            for wy_, wx_, cap in (DEFAULT_LADDER if ladder is None
+                                  else ladder)]
+
+
+def tile_folds(px: torch.Tensor, py: torch.Tensor, *, ny: int, nx: int,
+               x_min, x_max, y_min, y_max, order: int,
+               wy: int) -> torch.Tensor:
+    """The folded (y, x) index coordinates (2, ny_t, nx_t) of the (ny, nx)
+    parcel grid, edge-padded to whole (8, 128) tiles, the pole-home rows at
+    their substituted positions: what the spline tiers gather at.  Raises
+    if tier A's (``wy``, ``WX``) window exceeds JAX's padded field."""
+    if px.shape != (ny, nx) or py.shape != (ny, nx):
+        raise ValueError(f"tile_folds: positions {tuple(px.shape)} are not "
+                         f"the full ({ny}, {nx}) grid")
+    ypad, xpad = coeff_pad_dims(ny, nx)
+    ny_t, nx_t = _cdiv(ny, TILE_R) * TILE_R, _cdiv(nx, TILE_C) * TILE_C
+    nxp_c = nx + 2 * xpad - 128
+    if ny + 2 * ypad < wy or nxp_c < WX:
+        raise ValueError(f"window ({wy},{WX}) exceeds padded field "
+                         f"({ny + 2 * ypad},{nxp_c})")
+    pxt = pad_tiles(substitute_pole_rows(px, order), ny_t, nx_t)
+    pyt = pad_tiles(substitute_pole_rows(py, order), ny_t, nx_t)
+    xi, yi = scale_positions(pxt, pyt, x_min=x_min, x_max=x_max,
+                             y_min=y_min, y_max=y_max, nx=nx, ny=ny)
+    return torch.stack([_fold_coord_wrap(yi, ny), _fold_coord_wrap(xi, nx)])
+
+
 class Tier(NamedTuple):
     """One escalation tier's compacted slot list."""
     sel: torch.Tensor          # (cap,) int32 tile indices, live prefix
@@ -167,24 +202,14 @@ def route_tiles(px: torch.Tensor, py: torch.Tensor, *, ny: int, nx: int,
     unfit tiles stay in tier A and clamp.  Window starts are returned in
     unpadded unwrapped index space (JAX's padded start minus its pad).
     """
-    if px.shape != (ny, nx) or py.shape != (ny, nx):
-        raise ValueError(f"route_tiles: positions {tuple(px.shape)} are not "
-                         f"the full ({ny}, {nx}) grid")
+    folds = tile_folds(px, py, ny=ny, nx=nx, x_min=x_min, x_max=x_max,
+                       y_min=y_min, y_max=y_max, order=order, wy=wy)
+    yfold, xfold = folds[0], folds[1]
     device = px.device
     ypad, xpad = coeff_pad_dims(ny, nx)
-    ny_t, nx_t = _cdiv(ny, TILE_R) * TILE_R, _cdiv(nx, TILE_C) * TILE_C
+    _, ny_t, nx_t = folds.shape
     gy, gx = ny_t // TILE_R, nx_t // TILE_C
     n_tiles = gy * gx
-    nxp_c = nx + 2 * xpad - 128
-    if ny + 2 * ypad < wy or nxp_c < WX:
-        raise ValueError(f"window ({wy},{WX}) exceeds padded field "
-                         f"({ny + 2 * ypad},{nxp_c})")
-
-    pxt = pad_tiles(substitute_pole_rows(px, order), ny_t, nx_t)
-    pyt = pad_tiles(substitute_pole_rows(py, order), ny_t, nx_t)
-    xi, yi = scale_positions(pxt, pyt, x_min=x_min, x_max=x_max,
-                             y_min=y_min, y_max=y_max, nx=nx, ny=ny)
-    yfold, xfold = _fold_coord_wrap(yi, ny), _fold_coord_wrap(xi, nx)
     ymn, ymx = _tile_minmax(yfold, ny)
     xmn, xmx = _tile_minmax(xfold, nx)
 
@@ -194,10 +219,7 @@ def route_tiles(px: torch.Tensor, py: torch.Tensor, *, ny: int, nx: int,
     xfmn, xfmx = _fold_floor_mm(xfold)
     edge = (yfmn <= 1) | (yfmx >= ny - 3) | (xfmn <= 1) | (xfmx >= nx - 3)
 
-    wy_cap = ((ny + 2 * ypad) // 8) * 8
-    wx_cap = (nxp_c // 128) * 128
-    lad = [(min(wy_, wy_cap), None if wx_ is None else min(wx_, wx_cap), cap)
-           for wy_, wx_, cap in (DEFAULT_LADDER if ladder is None else ladder)]
+    lad = capped_ladder(ny, nx, ladder)
     m = 2 if order == 3 else 1
     ulp = torch.where(edge, 2, 1).to(torch.int32)
     slop = m + ulp
@@ -255,7 +277,7 @@ def route_tiles(px: torch.Tensor, py: torch.Tensor, *, ny: int, nx: int,
 
     sub = retry_tiles > 0
     return Routing(
-        gy=gy, gx=gx, folds=torch.stack([yfold, xfold]), fitA=fitA,
+        gy=gy, gx=gx, folds=folds, fitA=fitA,
         covered=covered,
         liveA=((fitA | ~covered) & ~fitS).to(torch.int32), y0A=y0A, x0A=x0A,
         liveS=fitS.to(torch.int32) if sub else None,

@@ -30,12 +30,24 @@ import torch
 
 from . import pole as P
 from .interp import _axis_taps, _cubic_weights, _to_index
-from .tiles import N_SUB, SUB_W, TILE_C, TILE_R, WX, route_tiles, unwrap_k
+from .tiles import (N_SUB, SUB_W, TILE_C, TILE_R, WX, X_GRAN, _floor_int,
+                    _fold_floor_mm, _tile_minmax, capped_ladder,
+                    coeff_pad_dims, route_tiles, tile_folds, unwrap_k)
 
-__all__ = ["Launch", "kernel_functions", "pole_ladder_gather_plain",
-           "pole_launch", "spline_launches",
-           "sub_window_gather_plain", "tile_window_gather_plain",
+__all__ = ["FIT_A", "FIT_S", "Launch", "PLAN_W", "kernel_functions",
+           "plan_tiers", "pole_ladder_gather_plain", "pole_launch",
+           "spline_launches", "sub_window_gather_plain", "tier_launch",
+           "tier_window_gather_plain", "tile_window_gather_plain",
            "windowed_interp_multi"]
+
+# tier_window_gather's per-tile outputs: ``plan`` rows are [tier, y0, x0 of
+# quarters 0..3, wy, wx or 0 for full longitude] with tier -2 (A-sub), -1
+# (tier A) or t >= 0 (ladder tier t; the x start in column 2); ``fits`` words
+# hold bit t if ladder tier t's window holds the tile, bit FIT_A for tier
+# A's, bit FIT_S for tier A-sub's
+PLAN_W = 8
+FIT_A, FIT_S = 16, 17
+MAX_TIERS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -59,11 +71,14 @@ def _window_taps(f, n, k, base, order):
 
 
 def _clip_taps(offs, w):
-    """Offsets clipped into [0, w), and whether any was outside."""
+    """Offsets clipped into [0, w) (``w``: an int or a tensor), and whether
+    any was outside."""
     bad = None
     for o in offs:
         b = (o < 0) | (o >= w)
         bad = b if bad is None else bad | b
+    if isinstance(w, torch.Tensor):
+        return [torch.minimum(o.clamp(min=0), w - 1) for o in offs], bad
     return [o.clamp(0, w - 1) for o in offs], bad
 
 
@@ -172,6 +187,158 @@ def sub_window_gather_plain(coeffs, folds, out, flags, overflow, y0map, x0q,
                  gy, gx)
 
 
+def _window_fit(mn, mx, m, ulp, pad, gran, limit, w):
+    """(start, fits): the unpadded start of the ``gran``-granular window of
+    width ``w`` that routing gives floors [mn, mx] with tap reach ``m`` and
+    slack ``ulp``, clamped to JAX's padded geometry (``limit`` cells), and
+    whether the window holds them (ops/tiles.py route_tiles)."""
+    start = ((mn - m - ulp + pad) // gran * gran).clamp(min=0).clamp(
+        max=(limit - w) // gran * gran) - pad
+    return start, (mn - m - ulp >= start) & (mx + 2 + ulp <= start + w - 1)
+
+
+def plan_tiers(fits: torch.Tensor, caps) -> torch.Tensor:
+    """The ladder tier of every tile, (n,) int64, -1: none.  ``fits`` (T, n)
+    bool: tier t's window holds tile i and no base tier does.  Three ordered
+    passes: in pass p a tile not yet taken tries the p-th tier that fits it,
+    and is taken if its rank among the tiles trying that tier (in index
+    order, after the tier's count so far) is under ``caps[t]``."""
+    T, n = fits.shape
+    nth = torch.cumsum(fits.to(torch.int64), dim=0)    # 1-based, per tile
+    caps = torch.tensor(list(caps), dtype=torch.int64,
+                        device=fits.device)[:, None]
+    tier = torch.full((n,), -1, dtype=torch.int64, device=fits.device)
+    cnt = torch.zeros((T, 1), dtype=torch.int64, device=fits.device)
+    for p in range(min(3, T)):
+        tries = fits & (nth == p + 1) & (tier < 0)[None]
+        rank = cnt + torch.cumsum(tries.to(torch.int64), dim=1) - 1
+        take = tries & (rank < caps)
+        tier = torch.where(take.any(dim=0), take.to(torch.int64).argmax(dim=0),
+                           tier)
+        cnt = cnt + take.sum(dim=1, keepdim=True)
+    return tier
+
+
+def tier_window_gather_plain(coeffs, folds, out, plan, fits, flags, overflow,
+                             *, f0, nf, order, wy, ladder, sub):
+    """The spline tiers of a gather group, routed and gathered — the plain
+    version of ``cuda_window.tier_window_gather``, in the kernels'
+    formulation.
+
+    Every (8, 128) home tile of ``folds`` (2, gy*8, gx*128) derives its
+    window facts (the min/max of its parcels' unwrapped floors, per tile
+    and per 32-column quarter, and of the plain floors), and from them
+    whether tier A-sub's four (``wy``, 128) quarter windows, tier A's
+    (``wy``, ``WX``) window and each ``ladder`` tier (wy, wx or None,
+    capacity; windows already cut by ``tiles.capped_ladder``) hold it.  The
+    tile takes A-sub if that fits (``sub``), else tier A if that fits, else
+    the ladder tier that ``plan_tiers`` gives it, else tier A's window,
+    clamped.  Its parcels are gathered against the window it took.
+
+    Writes ``out`` (nf, gy*8, gx*128); ``plan`` (gy*gx, PLAN_W) and ``fits``
+    (gy*gx,) int32 (see ``PLAN_W``); ``flags`` (gy*gx,) int32: 1 where a
+    tile's taps left its window (A-sub: bit q for quarter q); and ORs into
+    ``overflow``: bit 1 (with ``sub``) a tile that fits nothing, bit 2 a
+    clamped tier-A or A-sub tile, bit 5+t a clamped tile of ladder tier t.
+    """
+    _, ny, nx = coeffs.shape
+    _, ny_t, nx_t = folds.shape
+    gy, gx = ny_t // TILE_R, nx_t // TILE_C
+    n = gy * gx
+    if len(ladder) > MAX_TIERS:
+        raise ValueError(f"tier_window_gather: {len(ladder)} ladder tiers, "
+                         f"at most {MAX_TIERS}")
+    ypad, xpad = coeff_pad_dims(ny, nx)
+    ylim, xlim = ny + 2 * ypad, nx + 2 * xpad - TILE_C
+    m = 2 if order == 3 else 1
+    yfold, xfold = folds[0], folds[1]
+
+    # the tile's window facts
+    ymn, ymx = (a.reshape(n) for a in _tile_minmax(yfold, ny))
+    xmn, xmx = (a.reshape(n) for a in _tile_minmax(xfold, nx))
+    yfmn, yfmx = (a.reshape(n) for a in _fold_floor_mm(yfold))
+    xfmn, xfmx = (a.reshape(n) for a in _fold_floor_mm(xfold))
+    ulp = 1 + ((yfmn <= 1) | (yfmx >= ny - 3) | (xfmn <= 1)
+               | (xfmx >= nx - 3)).to(torch.int64)
+    xq = xfold.reshape(gy, TILE_R, gx, N_SUB, SUB_W)
+    f2 = _floor_int(xq) + nx * unwrap_k(xq, xq[:, :1, :, :, :1], nx)
+    x2mn = f2.amin(dim=(1, 4)).reshape(n, N_SUB)
+    x2mx = f2.amax(dim=(1, 4)).reshape(n, N_SUB)
+
+    # what fits
+    y0a, oky = _window_fit(ymn, ymx, m, ulp, ypad, 8, ylim, wy)
+    x0a, okx = _window_fit(xmn, xmx, m, ulp, xpad, X_GRAN, xlim, WX)
+    fit_a = oky & okx
+    x0s, okq = _window_fit(x2mn, x2mx, m, ulp[:, None], xpad, X_GRAN, xlim,
+                           TILE_C)
+    fit_s = oky & okq.all(dim=1) if sub else torch.zeros_like(fit_a)
+    lad = []
+    for wy_, wx_, _ in ladder:
+        y0, ok = _window_fit(ymn, ymx, m, ulp, ypad, 8, ylim, wy_)
+        x0 = torch.zeros_like(y0)
+        if wx_ is not None:
+            x0, okx = _window_fit(xmn, xmx, m, ulp, xpad, X_GRAN, xlim, wx_)
+            ok = ok & okx
+        lad.append((ok, y0, x0))
+    word = (fit_a.to(torch.int64) << FIT_A) | (fit_s.to(torch.int64) << FIT_S)
+    for t, (ok, _, _) in enumerate(lad):
+        word = word | (ok.to(torch.int64) << t)
+
+    # the choice
+    tier = torch.where(fit_s, -2, -1)
+    rows = [y0a, *torch.where(fit_s[:, None], x0s, torch.stack(
+        [x0a] + [torch.zeros_like(x0a)] * (N_SUB - 1), dim=1)).unbind(1),
+        torch.full_like(y0a, wy), torch.where(fit_s, TILE_C, WX)]
+    if lad:
+        base = fit_a | fit_s
+        took = plan_tiers(torch.stack([ok for ok, _, _ in lad]) & ~base[None],
+                          [cap for _, _, cap in ladder])
+        tier = torch.where(took >= 0, took, tier)
+        for t, ((wy_, wx_, _), (_, y0, x0)) in enumerate(zip(ladder, lad)):
+            mine = took == t
+            for k, v in enumerate((y0, x0, 0, 0, 0, wy_, wx_ or 0)):
+                rows[k] = torch.where(mine, v, rows[k])
+    uncovered = (tier == -1) & ~fit_a
+    plan.copy_(torch.stack([tier, *rows], dim=1).to(torch.int32))
+    fits.copy_(word.to(torch.int32))
+
+    # the gather: every tile as four quarters against its window (a tile
+    # that is not in tier A-sub gives its quarters one window and anchor)
+    is_sub = (tier == -2)[:, None, None, None]
+    shape = (n, N_SUB, 1, 1)
+    ft = torch.stack([_tile_major(folds[i:i + 1], gy, gx)[:, 0]
+                      for i in range(2)])                     # (2, n, 8, 128)
+    yq = ft[0].reshape(n, TILE_R, N_SUB, SUB_W).permute(0, 2, 1, 3)
+    xq = ft[1].reshape(n, TILE_R, N_SUB, SUB_W).permute(0, 2, 1, 3)
+    ya = ft[0][:, None, :1, :1]
+    xa = torch.where(is_sub, xq[..., :1, :1], ft[1][:, None, :1, :1])
+    y0 = rows[0].reshape(n, 1, 1, 1)
+    x0 = torch.where(is_sub, torch.stack(rows[1:5], dim=1).reshape(shape),
+                     rows[1].reshape(n, 1, 1, 1))
+    wy_t, wx_t = rows[5].reshape(n, 1, 1, 1), rows[6].reshape(n, 1, 1, 1)
+    full = wx_t == 0
+    vals, bad = _window_values(coeffs, f0, nf, yq, xq, ya, xa, y0, x0, wy_t,
+                               wx_t.clamp(min=1), order)  # (nf, n, 4, 8, 32)
+    if any(wx_ is None for _, wx_, _ in ladder):
+        vals_f, bad_f = _window_values(coeffs, f0, nf, yq, xq, ya, xa, y0,
+                                       None, wy_t, None, order)
+        vals = torch.where(full[None], vals_f, vals)
+        bad = torch.where(full, bad_f, bad)
+    vals = vals.permute(1, 0, 3, 2, 4).reshape(gy, gx, nf, TILE_R, TILE_C)
+    out.copy_(vals.permute(2, 0, 3, 1, 4).reshape(out.shape))
+    badq = bad.any(dim=3).any(dim=2)                          # (n, 4)
+    bits = (badq.to(torch.int64)
+            << torch.arange(N_SUB, device=badq.device)).sum(dim=1)
+    flag = torch.where(tier == -2, bits, badq.any(dim=1).to(torch.int64))
+    flags.copy_(flag.to(torch.int32))
+    word = uncovered.any().to(torch.int32) << 1 if sub else 0
+    for t in range(-1, len(lad)):
+        mine = tier == t if t >= 0 else tier < 0
+        word = word | (((flag > 0) & mine).any().to(torch.int32)
+                       << (5 + t if t >= 0 else 2))
+    overflow |= word
+
+
 def pole_ladder_gather_plain(raw, pack, out, overflow, *, f0, nf, ladder,
                              bit, levels=None):
     """The pole ladder's plain version: order-1 ``mode='constant'``
@@ -236,7 +403,8 @@ def kernel_functions(kernel: str, shared=None) -> dict:
     (``cuda_window.shared_tensors``, ``"cuda"`` only) is handed to every
     spline launch, which then skips the checks it vouches for."""
     if kernel == "torch":
-        return {"tile_window_gather": tile_window_gather_plain,
+        return {"tier_window_gather": tier_window_gather_plain,
+                "tile_window_gather": tile_window_gather_plain,
                 "sub_window_gather": sub_window_gather_plain,
                 "pole_ladder_gather": pole_ladder_gather_plain}
     if kernel == "cuda":
@@ -245,7 +413,8 @@ def kernel_functions(kernel: str, shared=None) -> dict:
         if shared is not None:
             tile, sub = partial(tile, shared=shared), partial(sub,
                                                               shared=shared)
-        return {"tile_window_gather": tile, "sub_window_gather": sub,
+        return {"tier_window_gather": C.tier_window_gather,
+                "tile_window_gather": tile, "sub_window_gather": sub,
                 "pole_ladder_gather": C.pole_ladder_gather}
     raise ValueError(f"kernel={kernel!r}: expected 'cuda' or 'torch'")
 
@@ -274,6 +443,24 @@ def spline_launches(rt, coeffs, *, f0, nf, order, wy) -> list[Launch]:
                 wx=tier.wx, bit=5 + t, sel=tier.sel, count=tier.count,
                 **kw)))
     return out
+
+
+def tier_launch(coeffs, px, py, *, f0, nf, order, wy, retry_tiles=256,
+                ladder=None, **bounds):
+    """The spline tiers' launch for the whole (ny, nx) parcel grid at
+    ``px``/``py``, and the folds (2, gy*8, gx*128) it gathers at
+    (``tiles.tile_folds``).  ``run(fn, out, plan, fits, flags, overflow)``
+    routes and gathers every tile into the (nf, gy*8, gx*128) output.
+    ``retry_tiles=0`` turns off tier A-sub and the ladder."""
+    _, ny, nx = coeffs.shape
+    folds = tile_folds(px, py, ny=ny, nx=nx, order=order, wy=wy, **bounds)
+    lad = tuple(capped_ladder(ny, nx, ladder)) if retry_tiles > 0 else ()
+    n_tiles = folds.shape[1] // TILE_R * (folds.shape[2] // TILE_C)
+    return Launch("tier_window_gather", "", n_tiles,
+                  lambda fn, o, plan, fits, f, v: fn(
+                      coeffs, folds, o, plan, fits, f, v, f0=f0, nf=nf,
+                      order=order, wy=wy, ladder=lad,
+                      sub=retry_tiles > 0)), folds
 
 
 def pole_launch(raw, pack, *, f0, nf, ladder) -> Launch:
@@ -357,19 +544,16 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
                                 torch.ones_like(pxf), **pole_kw)
         return P.pole_unsort_rows(vals, inv, **geom), flag
 
-    rt = route_tiles(px, py, ny=ny, nx=nx, order=order, wy=wy,
-                     retry_tiles=retry_tiles, ladder=ladder, **bounds)
-    out = torch.empty((nf, rt.gy * TILE_R, rt.gx * TILE_C), dtype=raw.dtype,
+    ln, folds = tier_launch(coeffs, px, py, f0=f0, nf=nf, order=order, wy=wy,
+                            retry_tiles=retry_tiles, ladder=ladder, **bounds)
+    n_tiles = ln.n_flags
+    ints = dict(dtype=torch.int32, device=px.device)
+    out = torch.empty((nf,) + tuple(folds.shape[1:]), dtype=raw.dtype,
                       device=px.device)
-    overflow = rt.overflow
-    if kernel == "cuda" and out.is_cuda:
-        # the tensors every spline launch shares are checked once
-        from .cuda_window import shared_tensors
-        fns = kernel_functions(kernel, shared_tensors(coeffs, rt.folds, out,
-                                                      overflow))
-    for ln in spline_launches(rt, coeffs, f0=f0, nf=nf, order=order, wy=wy):
-        ln.run(fns[ln.kernel], out, torch.empty(
-            (ln.n_flags,), dtype=torch.int32, device=px.device), overflow)
+    overflow = torch.zeros((1,), **ints)
+    ln.run(fns[ln.kernel], out, torch.empty((n_tiles, PLAN_W), **ints),
+           torch.empty((n_tiles,), **ints), torch.empty((n_tiles,), **ints),
+           overflow)
 
     if order > 0 and not skip_pole:
         vals, pflag = windowed_interp_multi(
