@@ -5,13 +5,16 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (the
-fused SETTLS step ``settls_step``; K1 ``spline_gather``; K2
-``tile_window_gather``, K3 ``sub_window_gather`` and the one-launch pole
-ladder ``pole_ladder_gather``), holds each against its plain PyTorch version
-on the card (the fused step and the ladder bit for bit), drives the flagship
+fused SETTLS step ``settls_step``; K1 ``spline_gather``; the spline window
+tiers' routed gather ``tier_window_gather`` and the one-launch pole ladder
+``pole_ladder_gather``), holds each against its plain PyTorch version on the
+card (the fused step, the routed gather and the ladder bit for bit, the
+routed gather's choices included, with a ladder whose capacities bind),
+drives the flagship
 FTLE pipeline (1440x721 parcels, 33 time levels, SETTLS order 4, float32)
 through both gather routes — ``engine="auto"`` (one ``settls_step`` launch
-per step) and ``engine="blockspec"`` (K2, K3 and the ladder) — and through
+per step) and ``engine="blockspec"`` (the routed gather and the ladder) —
+and through
 the per-group K1 loop that the fused step replaced, checks the float32
 pipelines against a scipy oracle, times the kernels beside their bounds (the
 least time the card could take for the same work), their plain versions and,
@@ -37,8 +40,8 @@ before the last is the kernel record ``{"kernels": [{"name", "route",
 CUDA-event trials; ``empty_launch_us``: an empty launch through the pole
 ladder's wrapper path in the same run;
 ``settls_step``'s launches summed over phases 4, 8 and 8b, K1's from the
-per-group loop of phase 4, K2's, K3's and the ladder's from phase 4b, each
-counted from 0)
+per-group loop of phase 4, the routed gather's (its two kernels) and the
+ladder's from phase 4b, each counted from 0)
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero, as does a machine without a CUDA device or a directory
 without the package.  ``--quick`` stops after phase 3c (build, and the
@@ -88,15 +91,11 @@ WINDOW_KERNELS = {
     # _pole_grid_kernel and _pole_list_kernel: the ladder in one launch
     "pole_ladder_gather": [f"{_PALLAS}:738", f"{_PALLAS}:755"],
 }
-# the launches tier_window_gather replaced, timed beside it
-OLD_KERNELS = ("tile_window_gather.dense", "tile_window_gather.list",
-               "sub_window_gather")
 # launches per flagship field on the blockspec route: 32 steps of 5 gather
 # groups, the spline tiers' two kernels and the pole ladder's one in each
 BLOCKSPEC_LAUNCHES = {"tier_window_gather.route": 160,
                       "tier_window_gather.gather": 160,
                       "pole_ladder_gather": 160}
-TIER_SHAPES = (256, 512, 1024)      # threads of a tier_gather_kernel CTA
 # the default ladder with capacities of 1 to 4: every tier fills, tiles
 # spill to later tiers and some are left to tier A
 CAPPED_LADDER = ((64, 256, 1), (32, 384, 2), (64, 384, 3), (32, 512, 4),
@@ -211,35 +210,23 @@ def shear_positions(grid):
 # The window kernels of one gather group, on the card and plain
 # ---------------------------------------------------------------------------
 
-def window_launches(W, CW, px, py, *, f0, nf, wy, bounds, ladder,
-                    order=ORDER, retry_tiles=256, pole_ladder=None):
-    """Every window-kernel launch of one ``engine="blockspec"`` gather group
-    at positions ``px``/``py`` with escalation ladder ``ladder``
-    (``window_interp.spline_launches``), plus the pole ladder's launch on the
-    group's pole-home rows, sorted as the hoisted pole loop sorts them (its
-    flags are the slots' levels).
-    Returns ([(name, out shape, n flags, run)], counts),
-    where ``run(kind, out, flags, overflow)`` launches the kernel (kind
-    "cuda"), its plain version (kind "plain") or, for the pole ladder, the
-    empty launch (kind "empty") on the same inputs."""
+def pole_launches(W, px, py, *, f0, nf, bounds, order=ORDER,
+                  pole_ladder=None):
+    """The pole ladder's launch of one ``engine="blockspec"`` gather group at
+    positions ``px``/``py``, on the group's pole-home rows, sorted as the
+    hoisted pole loop sorts them (its flags are the slots' levels).
+    Returns ([(name, out shape, n flags, run)], slots per level), where
+    ``run(kind, out, flags, overflow)`` launches the kernel (kind "cuda"),
+    its plain version (kind "plain") or the empty launch (kind "empty") on
+    the same inputs."""
     import torch
+    from lagrangiancoherence_tpu_torch.ops import cuda_window
     from lagrangiancoherence_tpu_torch.ops import pole as PL
     from lagrangiancoherence_tpu_torch.ops import window_interp as WI
-    from lagrangiancoherence_tpu_torch.ops.tiles import route_tiles
     ny, nx = px.shape
-    fns = {kind: WI.kernel_functions(k) for kind, k in (("cuda", "cuda"),
-                                                 ("plain", "torch"))}
-    from functools import partial
-    from lagrangiancoherence_tpu_torch.ops import cuda_window
-    fns["empty"] = {"pole_ladder_gather": cuda_window.empty_launch}
-    # the same kernels reading every window through L2 (no staging)
-    fns["unstaged"] = {
-        "tile_window_gather": partial(cuda_window.tile_window_gather,
-                                      stage=False),
-        "sub_window_gather": partial(cuda_window.sub_window_gather,
-                                     stage=False)}
-    rt = route_tiles(px, py, ny=ny, nx=nx, order=order, wy=wy,
-                     retry_tiles=retry_tiles, ladder=ladder, **bounds)
+    fns = {"cuda": cuda_window.pole_ladder_gather,
+           "plain": WI.pole_ladder_gather_plain,
+           "empty": cuda_window.empty_launch}
     rx, ry = PL.pole_rows(px, order), PL.pole_rows(py, order)
     perm, _ = PL.pole_sort_state(rx, ry, order=order, ny=ny, nx=nx, **bounds)
     geom = dict(order=order, nx=nx)
@@ -247,46 +234,29 @@ def window_launches(W, CW, px, py, *, f0, nf, wy, bounds, ladder,
     pole_ladder = tuple(pole_ladder or PL.POLE_LADDER)
     pack = PL.pole_pack(pxf, PL.pole_apply_perm(ry, perm, **geom),
                         torch.ones_like(pxf), ny=ny, nx=nx, **bounds)
-    poles = [WI.pole_launch(W.reshape(-1, ny, nx), pack, f0=f0, nf=nf,
-                            ladder=pole_ladder)]
+    ln = WI.pole_launch(W.reshape(-1, ny, nx), pack, f0=f0, nf=nf,
+                        ladder=pole_ladder)
     pr = PL.pole_levels(PL.pole_keys(pack, ny), ny=ny, ladder=pole_ladder)
-    shapes = {"spline": (nf, rt.gy * 8, rt.gx * 128),
-              "pole": (nf, poles[0].n_flags * 8, 128)}
-    runs = []
-    for part, launches in (("spline", WI.spline_launches(
-            rt, CW.reshape(-1, ny, nx), f0=f0, nf=nf, order=order, wy=wy)),
-            ("pole", poles)):
-        for ln in launches:
-            runs.append((f"{ln.kernel}.{ln.mode}".rstrip("."), shapes[part],
-                         ln.n_flags,
-                         lambda kind, o, f, v, ln=ln: ln.run(
-                             fns[kind][ln.kernel], o, f, v)))
-    counts = {"tiers": [int(t.count) for t in rt.tiers],
-              "tierA": int(rt.liveA.sum()),
-              "sub": int(rt.liveS.sum()) if rt.liveS is not None else 0,
-              "pole_levels": [int((pr.level == k).sum()) for k in range(3)]}
-    return runs, counts
+    runs = [(ln.kernel, (nf, ln.n_flags * 8, 128), ln.n_flags,
+             lambda kind, o, f, v: ln.run(fns[kind], o, f, v))]
+    return runs, [int((pr.level == k).sum()) for k in range(3)]
 
 
 def tier_run(CW, px, py, kind, *, f0, nf, wy, bounds, ladder, order=ORDER,
-             retry_tiles=256, threads=None):
+             retry_tiles=256):
     """One gather group's spline tiers through ``tier_window_gather`` (kind
-    "cuda", ``threads`` a CTA) or its plain version (kind "plain") on zeroed
-    outputs: {"out", "plan", "fits", "flags", "overflow"} and a closure
-    that launches again on the same buffers."""
+    "cuda") or its plain version (kind "plain") on zeroed outputs: {"out",
+    "plan", "fits", "flags", "overflow"} and a closure that launches again
+    on the same buffers."""
     import torch
-    from functools import partial
     from lagrangiancoherence_tpu_torch.ops import cuda_window
     from lagrangiancoherence_tpu_torch.ops import window_interp as WI
     ny, nx = px.shape
     ln, folds = WI.tier_launch(CW.reshape(-1, ny, nx), px, py, f0=f0, nf=nf,
                                order=order, wy=wy, retry_tiles=retry_tiles,
                                ladder=ladder, **bounds)
-    fn = WI.tier_window_gather_plain
-    if kind == "cuda":
-        fn = cuda_window.tier_window_gather
-        if threads:
-            fn = partial(fn, threads=threads)
+    fn = (cuda_window.tier_window_gather if kind == "cuda"
+          else WI.tier_window_gather_plain)
     ints = dict(dtype=torch.int32, device=px.device)
     n = ln.n_flags
     res = {"out": torch.zeros((nf,) + tuple(folds.shape[1:]), dtype=CW.dtype,
@@ -301,49 +271,6 @@ def tier_run(CW, px, py, kind, *, f0, nf, wy, bounds, ladder, order=ORDER,
                res["overflow"])
     again()
     return res, again
-
-
-def old_spline_group(CW, px, py, *, f0, nf, wy, bounds, ladder, order=ORDER,
-                     retry_tiles=256):
-    """The same group through the launches ``tier_window_gather`` replaces
-    (``route_tiles``, then K2 dense, K3 and one K2 list launch a ladder
-    tier, on the card): the output, each tile's tier (-2 A-sub, -1 tier A,
-    t ladder tier t) and flag word in ``tier_window_gather``'s form, the
-    overflow word, and ``route_tiles``' tier-A fits."""
-    import torch
-    from lagrangiancoherence_tpu_torch.ops import window_interp as WI
-    from lagrangiancoherence_tpu_torch.ops.tiles import route_tiles
-    ny, nx = px.shape
-    rt = route_tiles(px, py, ny=ny, nx=nx, order=order, wy=wy,
-                     retry_tiles=retry_tiles, ladder=ladder, **bounds)
-    n = rt.gy * rt.gx
-    out = torch.zeros((nf, rt.gy * 8, rt.gx * 128), dtype=CW.dtype,
-                      device=px.device)
-    overflow = rt.overflow.clone()
-    fns = WI.kernel_functions("cuda")
-    tier = torch.full((n,), -1, dtype=torch.int32, device=px.device)
-    flag = torch.zeros((n,), dtype=torch.int32, device=px.device)
-    t = 0
-    for ln in WI.spline_launches(rt, CW.reshape(-1, ny, nx), f0=f0, nf=nf,
-                                 order=order, wy=wy):
-        f = torch.full((ln.n_flags,), -1, dtype=torch.int32,
-                       device=px.device)
-        ln.run(fns[ln.kernel], out, f, overflow)
-        if ln.mode == "dense":
-            flag += f
-        elif ln.kernel == "sub_window_gather":
-            tier[rt.liveS.reshape(-1) != 0] = -2
-            flag += (f.reshape(n, 4) << torch.arange(
-                4, dtype=torch.int32, device=f.device)).sum(dim=1).int()
-        else:
-            live = int(rt.tiers[t].count)
-            sel = rt.tiers[t].sel[:live].long()
-            tier[sel] = t
-            flag[sel] += f[:live]
-            t += 1
-    return {"out": out, "tier": tier, "flags": flag, "overflow": overflow,
-            "fitA": rt.fitA.reshape(-1)}
-
 
 
 def compare_launches(runs, dtype, device):
@@ -427,12 +354,10 @@ def spread(ms):
     return float(np.median(ms)), min(ms), max(ms)
 
 
-def time_launches(runs, dtype, device, reps, plain_reps, kinds=None):
+def time_launches(runs, dtype, device, reps, plain_reps):
     """Trial times (``event_ms``) of one gather group's launches of each
     kernel name, for the kernels and for the plain versions, and under
-    ``name, "device"`` the kernels' ``device_us``.  ``kinds``: {kind:
-    calls per trial} to time instead, each kind but "plain" with its
-    ``device_us`` under ``name, kind + " device"``."""
+    ``name, "device"`` the kernels' ``device_us``."""
     import torch
     bufs = [(name, torch.zeros(shape, dtype=dtype, device=device),
              # the main path asks the ladder for no levels
@@ -441,20 +366,17 @@ def time_launches(runs, dtype, device, reps, plain_reps, kinds=None):
              torch.zeros((1,), dtype=torch.int32, device=device), run)
             for name, shape, n, run in runs]
     times = {}
-    for kind, n in (kinds or {"cuda": reps, "plain": plain_reps}).items():
+    for kind, n in (("cuda", reps), ("plain", plain_reps)):
         for name in dict.fromkeys(b[0] for b in bufs):
             mine = [b for b in bufs if b[0] == name]
-            if kind == "unstaged" and name == "pole_ladder_gather":
-                continue
 
             def group(mine=mine, kind=kind):
                 for _, o, f, v, run in mine:
                     run(kind, o, f, v)
             times[name, kind] = event_ms(group, n)
-            if kind != "plain":
-                times[name, "device" if kind == "cuda" else kind + " device"] \
-                    = device_us(group, n, name.split(".")[0].replace(
-                        "_gather", "_kernel"))
+            if kind == "cuda":
+                times[name, "device"] = device_us(
+                    group, n, name.replace("_gather", "_kernel"))
     return times
 
 
@@ -1277,8 +1199,8 @@ def main() -> int:
         return 1 if failures else 0
 
     # -- 2. build ------------------------------------------------------------
-    log(f"== phase 2: build settls_step, K1-K3 and the pole ladder (one nvcc "
-        f"per source, in parallel) [{card}]")
+    log(f"== phase 2: build settls_step, K1, tier_window_gather and the pole "
+        f"ladder (one nvcc per source, in parallel) [{card}]")
     lib_path, build_s, build_log = _build.build()
     _build.load_library()
     log(f"built {lib_path.name} in {build_s:.2f} s")
@@ -1404,9 +1326,9 @@ def main() -> int:
         log(f"chip_smoke --quick: {len(failures)} check(s) failed")
         return 1 if failures else 0
 
-    # -- 3b. K2, K3 and the pole ladder against their plain versions ----------
-    log(f"== phase 3b: K2, K3 and the pole ladder vs plain on the card "
-        f"(flagship grid) [{card}]")
+    # -- 3b. the window tiers and the pole ladder against their plain versions
+    log(f"== phase 3b: tier_window_gather and the pole ladder vs plain on the "
+        f"card (flagship grid) [{card}]")
     # the flagship cases are laid out as the main path lays them out:
     # polar bands sort-binned, gathered with the sort ladder
     bands = _sort_bands(grid, ORDER)
@@ -1446,70 +1368,53 @@ def main() -> int:
             py = torch.tensor(cy, dtype=dtype, device=dev)
             if kw.pop("sort"):
                 px, py = sort_binned(px, py)
-            runs, counts = window_launches(Wd, CWd, px, py, bounds=bounds,
-                                           **kw)
+            runs, levels = pole_launches(
+                Wd, px, py, f0=kw["f0"], nf=kw["nf"], bounds=bounds,
+                pole_ladder=kw.pop("pole_ladder", None))
             res = compare_launches(runs, dtype, dev)
-            log(f"  {name} {label}: tierA {counts['tierA']} sub "
-                f"{counts['sub']} ladder {counts['tiers']} pole levels "
-                f"{counts['pole_levels']}")
             for kname, (err, eq, ovf, nflag) in res.items():
                 # the ladder is held to bit identity; its flags are levels
-                ktol = 0.0 if kname == "pole_ladder_gather" else tol
-                check(err <= ktol and eq,
+                check(err == 0.0 and eq,
                       f"{name} {label} {kname}: max|kernel-plain|={err:.3e} "
-                      f"(<= {ktol:g}) flags equal={eq} overflow=0x{ovf:x} "
-                      f"slots flagged={nflag} bit-identical={err == 0.0}")
+                      f"(== 0) levels equal={eq} overflow=0x{ovf:x} pole "
+                      f"levels {levels}")
                 window_err[kname] = max(window_err.get(kname, 0.0), err) \
                     if name == "float32" else window_err.get(kname, 0.0)
-            # the spline tiers as one routed gather, at each CTA shape:
-            # against its plain version, against the launches it replaces,
-            # and its unflagged tiles against K1 on the spline rows
-            tkw = {k: v for k, v in kw.items() if k != "pole_ladder"}
-            old = old_spline_group(CWd, px, py, bounds=bounds, **tkw)
-            plain, _ = tier_run(CWd, px, py, "plain", bounds=bounds, **tkw)
+            # the spline tiers as one routed gather: against its plain
+            # version (values, plan, fits, flags and overflow word), and
+            # its unflagged tiles against K1 on the spline rows
+            plain, _ = tier_run(CWd, px, py, "plain", bounds=bounds, **kw)
+            new, _ = tier_run(CWd, px, py, "cuda", bounds=bounds, **kw)
             k1 = cuda_interp.cuda_interp_multi(
                 Wd, CWd, px, py, f0=kw["f0"], nf=kw["nf"], order=ORDER,
                 **bounds)[0]
-            for threads in TIER_SHAPES:
-                new, _ = tier_run(CWd, px, py, "cuda", threads=threads,
-                                  bounds=bounds, **tkw)
-                torch.cuda.synchronize()
-                tier = new["plan"][:, 0]
-                gy_, gx_ = new["out"].shape[1] // 8, new["out"].shape[2] // 128
-                same_p, err, where = same_values(new["out"], plain["out"])
-                eq_p = all(torch.equal(new[k], plain[k])
-                           for k in ("plan", "fits", "flags", "overflow"))
-                same_o = same_values(new["out"], old["out"])[0]
-                eq_o = (torch.equal(tier, old["tier"])
-                        and torch.equal(new["flags"], old["flags"])
-                        and torch.equal(new["overflow"], old["overflow"])
-                        and torch.equal((new["fits"] >> 16) & 1,
-                                        old["fitA"].int()))
-                clean = (new["flags"] == 0).reshape(gy_, 1, gx_, 1).expand(
-                    gy_, 8, gx_, 128).reshape(gy_ * 8, gx_ * 128)[
-                        ORDER:ny - ORDER, :nx]
-                same_k = same_values(
-                    torch.where(clean, new["out"][:, ORDER:ny - ORDER, :nx],
-                                0.0),
-                    torch.where(clean, k1[:, ORDER:ny - ORDER], 0.0))[0]
-                tcounts = [int((tier == t).sum())
-                           for t in range(-2, len(tkw["ladder"]))]
-                check(same_p and eq_p and same_o and eq_o and same_k,
-                      f"{name} {label} tier_window_gather {threads} threads: "
-                      f"identical to plain={same_p} (max|d|={err:.3e} at "
-                      f"{where}), plan, fits, flags, overflow equal={eq_p}; "
-                      f"identical to the old launches={same_o}, tier, flags, "
-                      f"overflow, fitA equal={eq_o}; unflagged tiles "
-                      f"identical to K1={same_k}; overflow=0x"
-                      f"{int(new['overflow']):x} tiles flagged="
-                      f"{int((new['flags'] > 0).sum())} A-sub, A, ladder="
-                      f"{tcounts}")
-                if name == "float32":
-                    window_err["tier_window_gather"] = max(
-                        window_err.get("tier_window_gather", 0.0), err)
+            torch.cuda.synchronize()
+            tier = new["plan"][:, 0]
+            gy_, gx_ = new["out"].shape[1] // 8, new["out"].shape[2] // 128
+            same_p, err, where = same_values(new["out"], plain["out"])
+            eq_p = all(torch.equal(new[k], plain[k])
+                       for k in ("plan", "fits", "flags", "overflow"))
+            clean = (new["flags"] == 0).reshape(gy_, 1, gx_, 1).expand(
+                gy_, 8, gx_, 128).reshape(gy_ * 8, gx_ * 128)[
+                    ORDER:ny - ORDER, :nx]
+            same_k = same_values(
+                torch.where(clean, new["out"][:, ORDER:ny - ORDER, :nx], 0.0),
+                torch.where(clean, k1[:, ORDER:ny - ORDER], 0.0))[0]
+            tcounts = [int((tier == t).sum())
+                       for t in range(-2, len(kw["ladder"]))]
+            ovf = int(new["overflow"])
+            check(same_p and eq_p and same_k,
+                  f"{name} {label} tier_window_gather: identical to plain="
+                  f"{same_p} (max|d|={err:.3e} at {where}), plan, fits, "
+                  f"flags, overflow equal={eq_p}; unflagged tiles identical "
+                  f"to K1={same_k}; overflow=0x{ovf:x} tiles flagged="
+                  f"{int((new['flags'] > 0).sum())}; tiles in A-sub, A, "
+                  f"ladder tiers={tcounts}")
+            if name == "float32":
+                window_err["tier_window_gather"] = max(
+                    window_err.get("tier_window_gather", 0.0), err)
             if label.startswith("shear, ladder capacities"):
                 caps = [c for _, _, c in CAPPED_LADDER]
-                ovf = int(new["overflow"])
                 unfit = (new["fits"] >> 16) == 0
                 want = [int((unfit & ((new["fits"] >> t) & 1 > 0)).sum())
                         for t in range(len(caps))]
@@ -1522,18 +1427,18 @@ def main() -> int:
                       f"tiers full with tiles turned away {full}; {left} "
                       f"unfit tiles left to tier A, bit 1 raised: 0x{ovf:x}")
             if label.startswith("whirl"):
-                full = [n for n, (_, wx, _) in zip(counts["tiers"],
-                                                   kw["ladder"]) if wx is None]
+                full = [n for n, (_, wx, _) in zip(tcounts[2:], kw["ladder"])
+                        if wx is None]
                 check(any(full), f"{name} {label} fills the full-longitude "
                       f"tiers {full}")
             if label.startswith("shear retry=0"):
-                ovf = res["tile_window_gather.dense"][2]
-                check(ovf & (1 << 2) != 0,
-                      f"{name} shear retry=0 wy=16 raises bit 2: 0x{ovf:x}")
+                check(ovf == 1 << 2,
+                      f"{name} shear retry=0 wy=16 raises bit 2 only: "
+                      f"0x{ovf:x}")
             if label.startswith(f"pole_ladder={FORCED_POLE_LADDER}"):
-                check(all(c > 0 for c in counts["pole_levels"][1:]),
+                check(all(c > 0 for c in levels[1:]),
                       f"{name} forced pole ladder reaches levels 2 and 3: "
-                      f"{counts['pole_levels']}")
+                      f"{levels}")
             if label.startswith(f"pole_ladder={CLAMPED_POLE_LADDER}"):
                 ovf = res["pole_ladder_gather"][2]
                 check(ovf == 1 << 4, f"{name} clamped pole ladder raises "
@@ -1585,7 +1490,7 @@ def main() -> int:
 
     # -- 4b. the blockspec route ----------------------------------------------
     log("== phase 4b: flagship ftle_pipeline(engine='blockspec') through "
-        f"K2, K3 and the pole ladder [{card}]")
+        f"tier_window_gather and the pole ladder [{card}]")
     torch.cuda.synchronize()
     cuda_interp.LAUNCHES = cuda_settls.LAUNCHES = 0
     cuda_window.reset_launches()
@@ -1733,8 +1638,8 @@ def main() -> int:
         W, CW, px, py, state["conv_x"], dt, 0, gather=k1_gather, **skw), 20)
     del CI
     # F=4 gather groups at the flagship positions, as each route lays them
-    # out: K1 on the grid layout, K2, K3 and the pole ladder sort-binned with
-    # the sort ladder
+    # out: K1 on the grid layout, the routed gather and the pole ladder
+    # sort-binned with the sort ladder
     times["spline_gather"] = event_ms(lambda: cuda_interp.cuda_interp_multi(
         W, CW, px, py, f0=0, nf=4, order=ORDER, **bounds), 50)
     dev_us["spline_gather"] = device_us(
@@ -1744,96 +1649,62 @@ def main() -> int:
     plain_times["spline_gather"] = event_ms(lambda: interp_at_parcels_multi(
         W.reshape(-1, ny, nx)[:4], CW.reshape(-1, ny, nx)[:4], px, py,
         order=ORDER, **bounds), 5)
-    runs, wcounts = window_launches(W, CW, *sort_binned(px, py), f0=0, nf=4,
-                                    wy=32, bounds=bounds, ladder=SORT_LADDER)
+    spx, spy = sort_binned(px, py)
+    runs, pole_levels = pole_launches(W, spx, spy, f0=0, nf=4, bounds=bounds)
     window_ms = time_launches(runs, torch.float32, dev, reps=50,
                               plain_reps=5)
-    for kname in (*OLD_KERNELS, "pole_ladder_gather"):
-        times[kname] = window_ms[kname, "cuda"]
-        plain_times[kname] = window_ms[kname, "plain"]
-        dev_us[kname] = window_ms[kname, "device"]
-    # the spline tiers as one routed gather: the group's two launches at
-    # each CTA shape, F=4 (wy 32) and F=2 (wy 64), and device time by kernel
-    spx, spy = sort_binned(px, py)
+    kname = "pole_ladder_gather"
+    times[kname] = window_ms[kname, "cuda"]
+    plain_times[kname] = window_ms[kname, "plain"]
+    dev_us[kname] = window_ms[kname, "device"]
+    # the spline tiers as one routed gather: the group's two launches, F=4
+    # (wy 32) and F=2 (wy 64), and the device time of each kernel
     for nf_, wy_ in ((4, 32), (2, 64)):
-        for threads in TIER_SHAPES:
-            _, again = tier_run(CW, spx, spy, "cuda", threads=threads, f0=0,
-                                nf=nf_, wy=wy_, bounds=bounds,
-                                ladder=SORT_LADDER)
-            t_ms = event_ms(again, 50)
-            r_us = device_us(again, 50, "tier_route_kernel")
-            g_us = device_us(again, 50, "tier_gather_kernel")
-            med, lo, hi = spread(t_ms)
-            log(f"  F={nf_} wy={wy_} tier_window_gather, {threads} threads: "
-                f"{med:.4f} ms [{lo:.4f}, {hi:.4f}] a group; device: "
-                f"tier_route_kernel {r_us[0]:.2f} us, tier_gather_kernel "
-                f"{g_us[0]:.2f} us [{card}]")
-            if nf_ == 4 and threads == cuda_window.TIER_THREADS:
-                times["tier_window_gather"] = t_ms
-                dev_us["tier_window_gather"] = ((r_us[0] + g_us[0]) / 2, 2)
+        _, again = tier_run(CW, spx, spy, "cuda", f0=0, nf=nf_, wy=wy_,
+                            bounds=bounds, ladder=SORT_LADDER)
+        t_ms = event_ms(again, 50)
+        r_us = device_us(again, 50, "tier_route_kernel")
+        g_us = device_us(again, 50, "tier_gather_kernel")
+        med, lo, hi = spread(t_ms)
+        log(f"  F={nf_} wy={wy_} tier_window_gather: {med:.4f} ms [{lo:.4f}, "
+            f"{hi:.4f}] a group; device: tier_route_kernel {r_us[0]:.2f} us, "
+            f"tier_gather_kernel {g_us[0]:.2f} us [{card}]")
+        if nf_ == 4:
+            times["tier_window_gather"] = t_ms
+            dev_us["tier_window_gather"] = ((r_us[0] + g_us[0]) / 2, 2)
+    _, again = tier_run(CW, spx, spy, "cuda", f0=0, nf=4, wy=32,
+                        bounds=bounds, ladder=())
+    log(f"  F=4 wy=32 with an empty ladder (the last CTA plans no pass): "
+        f"tier_route_kernel "
+        f"{device_us(again, 50, 'tier_route_kernel')[0]:.2f} us [{card}]")
     _, again = tier_run(CW, spx, spy, "plain", f0=0, nf=4, wy=32,
                         bounds=bounds, ladder=SORT_LADDER)
     plain_times["tier_window_gather"] = event_ms(again, 5)
-    # the staged kernels beside the same kernels reading through L2, F=4 and
-    # F=2 groups at the main path's layout, in turns; and the torch launches
-    # that routing alone issues for a group
-    from lagrangiancoherence_tpu_torch.ops.tiles import route_tiles
+    # the kernels one F=4 gather group's spline call launches, routing and
+    # torch ops included
     from lagrangiancoherence_tpu_torch.ops.window_interp import \
         windowed_interp_multi
-    for nf_, wy_ in ((4, 32), (2, 64)):
-        runs_, _ = window_launches(W, CW, spx, spy, f0=0, nf=nf_, wy=wy_,
-                                   bounds=bounds, ladder=SORT_LADDER)
-        probe = time_launches(runs_, torch.float32, dev, 50, 0, kinds={
-            "cuda": 50, "unstaged": 50})
-        for kname in OLD_KERNELS:
-            parts = []
-            for kind, dkey in (("cuda", "device"),
-                               ("unstaged", "unstaged device")):
-                med, lo, hi = spread(probe[kname, kind])
-                us, per_call = probe[kname, dkey]
-                parts.append(f"{'staged' if kind == 'cuda' else kind} "
-                             f"{med:.4f} ms [{lo:.4f}, {hi:.4f}], device "
-                             f"{us:.2f} us x {per_call:g}")
-            log(f"  F={nf_} wy={wy_} {kname}: " + "; ".join(parts)
-                + f" [{card}]")
-    n_route = profile_field(lambda: route_tiles(
-        spx, spy, ny=ny, nx=nx, order=ORDER, wy=32, ladder=SORT_LADDER,
-        **bounds))["kernels"]
     n_group = profile_field(lambda: windowed_interp_multi(
         W, CW, spx, spy, order=ORDER, wy=32, f0=0, nf=4, ladder=SORT_LADDER,
         skip_pole=True, kernel="cuda", **bounds))["kernels"]
-    log(f"  torch launches of one F=4 gather group: route_tiles alone "
-        f"{n_route}, the spline tiers' windowed_interp_multi call {n_group} "
-        f"[{card}]")
+    log(f"  kernels of one F=4 gather group's spline call "
+        f"(windowed_interp_multi, skip_pole): {n_group} [{card}]")
 
     # bounds: each input byte read once and each output byte written once,
     # and the operations, for one step (settls_step) or one F=4 group at
-    # the layout each route gives it; window kernels count the parcels their
-    # launches are routed at, and the coefficient bytes in proportion
+    # the layout each route gives it
     n_all, plane = ny * nx, 4 * ny * nx
     pole_p = 2 * ORDER * nx
-    flags_b = {}
-    for name, _, n_flags, _ in runs:
-        flags_b[name] = flags_b.get(name, 0) + 4 * n_flags
-    routed = {"tile_window_gather.dense": wcounts["tierA"] * TILE,
-              "tile_window_gather.list": sum(wcounts["tiers"]) * TILE,
-              "sub_window_gather": wcounts["sub"] * TILE,
-              "pole_ladder_gather": pole_p}
     work = {"settls_step": (16 * n_all + 4 * plane + 16 * pole_p + 4 * ny,
                             n_all * step_ops(SETTLS_ORDER)),
             "spline_gather": (8 * n_all + 4 * plane + 16 * n_all,
-                              n_all * gather_ops(4))}
-    for kname, n in routed.items():
-        if kname == "pole_ladder_gather":
+                              n_all * gather_ops(4)),
             # the packed operand in and the four values out of every point
             # of the padded slots, the raw rows in proportion to the real
             # points, and the overflow word
-            slots = sum(wcounts["pole_levels"])
-            work[kname] = (32 * slots * TILE + 4 * plane * n / n_all + 4,
-                           n * bilinear_ops(4))
-        else:
-            work[kname] = (24 * n + 4 * plane * n / n_all + flags_b[kname],
-                           n * gather_ops(4))
+            "pole_ladder_gather": (
+                32 * sum(pole_levels) * TILE + 4 * plane * pole_p / n_all + 4,
+                pole_p * bilinear_ops(4))}
     # the routed gather: every tile's folds read once, its values written
     # once, the four coefficient planes once, and the per-tile plan, fits
     # and flag words and the overflow word
@@ -1893,13 +1764,13 @@ def main() -> int:
     empty_us = spread(turn_ms["empty launch"])[0] * 1e3
 
     per_field = {"settls_step": NT - 1, "spline_gather": k1_launches,
-                 **dict.fromkeys(OLD_KERNELS, 0), **window_launch,
+                 **window_launch,
                  "tier_window_gather":
                  window_launch["tier_window_gather.route"]
                  + window_launch["tier_window_gather.gather"]}
     ms, plain_ms = {}, {}
     for kname in ["settls_step", "K1 loop step", "spline_gather",
-                  *OLD_KERNELS, *WINDOW_KERNELS]:
+                  *WINDOW_KERNELS]:
         ms[kname], lo, hi = spread(times[kname])
         line = (f"{kname}: {ms[kname]:.4f} ms [{lo:.4f}, {hi:.4f}] (median "
                 f"[min, max] of {len(times[kname])} trials)")

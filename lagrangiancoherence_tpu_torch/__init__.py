@@ -7,9 +7,10 @@ built with ``nvcc`` at first use on the GPU: the fused SETTLS step
 ``settls_step`` (``ops/csrc/settls_step.cu``, through
 ``ops/cuda_settls.py``) on the default gather route; K1 ``spline_gather``
 (``ops/csrc/spline_gather.cu``, through ``ops/cuda_interp.py``), one gather
-group per launch; and K2 ``tile_window_gather``, K3 ``sub_window_gather``
-and the pole ladder ``pole_ladder_gather`` (``ops/csrc/window_gather.cu``,
-through ``ops/cuda_window.py``) on the ``engine="blockspec"`` route.  The entry
+group per launch; and ``tier_window_gather`` (the spline window tiers: every
+tile routes itself) and the pole ladder ``pole_ladder_gather``
+(``ops/csrc/window_gather.cu``, through ``ops/cuda_window.py``) on the
+``engine="blockspec"`` route.  The entry
 points compute on the card unless asked for the CPU (``devices.py``).
 
 Public API (lazy-imported to keep ``import lagrangiancoherence_tpu_torch``

@@ -1,26 +1,29 @@
-// K2 tile_window_gather, K3 sub_window_gather and the pole ladder
-// pole_ladder_gather: the windowed gathers of the `blockspec` route of
+// tier_window_gather (the spline window tiers) and pole_ladder_gather (the
+// pole ladder): the windowed gathers of the `blockspec` route of
 // lagrangiancoherence_tpu_torch.
 //
 // Replace the Pallas TPU kernels of lagrangiancoherence_tpu/ops/
 // pallas_interp.py:
-//   K2 dense mode  <- `_grid_kernel` (:715, tier A), body `_spline_tile_body`
-//   K2 list mode   <- `_list_kernel` (:772, the escalation ladder)
-//   K3             <- `_sub_grid_kernel` (:648, tier A-sub), `_sub_tile_body`
-//   pole ladder    <- `_pole_grid_kernel` (:738, pole level 1) and
-//                     `_pole_list_kernel` (:755, pole levels 2 and 3), both
-//                     with body `_pole_block_body` (:668): the three
-//                     launches of `_pole_eval_block` (:1116-1341) in one
+//   tier_window_gather <- `_grid_kernel` (:715, tier A, body
+//                         `_spline_tile_body`), `_list_kernel` (:772, the
+//                         escalation ladder) and `_sub_grid_kernel` (:648,
+//                         tier A-sub, body `_sub_tile_body`), and the XLA
+//                         ops that routed tiles to them (:1833-2036)
+//   pole ladder        <- `_pole_grid_kernel` (:738, pole level 1) and
+//                         `_pole_list_kernel` (:755, pole levels 2 and 3),
+//                         both with body `_pole_block_body` (:668): the
+//                         three launches of `_pole_eval_block` (:1116-1341)
 // Those contract one-hot bases on the MXU over a window of field cells that
-// routing (ops/tiles.py, ops/pole.py) proved to hold each (8, 128) tile's
-// taps.  Here one CTA evaluates one tile (K3: one 32-column quarter of a
-// tile) and each thread gathers its parcels' taps directly, with K1's
+// routing proved to hold each (8, 128) tile's taps, one launch a window
+// shape, because a Pallas grid has one.  Here a CTA takes its tile's or
+// slot's window from the tile's own parcels, so one gather launch serves
+// every tier, and each thread gathers its parcels' taps directly, with K1's
 // arithmetic (gather_math.cuh):
 //   * tap offsets are taken relative to the window start exactly as
 //     `_tap_offsets` (:268-299) takes them: the unwrapped floor is
 //     floor(fold) + n*k with the integer period count k of `_unwrap_k`,
 //     and the mirror-edge remaps are applied to the offsets;
-//   * a live tile whose taps leave the window sets its flag and ORs its
+//   * a tile whose taps leave the window sets its flag and ORs its
 //     overflow bit; the offsets are clipped into the window (the flag
 //     contract of `_onehot_basis`, :375-391);
 //   * a window cell maps to the resident (fields, ny, nx) stack by
@@ -28,23 +31,15 @@
 //     column taps, and the pole path reads raw rows directly;
 //   * taps accumulate as in K1 (y outer, x inner, weight wy*wx first), so
 //     an unflagged tile's values equal K1's bit for bit.
-// Outputs are written in place into each tile's home block; a dead slot
-// (dense: not routed here; list: at or past the device-side count) writes
-// only its flag, 0.
-//
-// What bounds them: gather latency and bytes, as K1.  Windows of at most
-// `stage_bytes` (chosen by the wrapper, ops/cuda_window.py) are first
-// staged into shared memory by the whole CTA, so that each tap is a shared
-// memory read; wider and full-longitude windows read the stack through L2.
+// Outputs are written in place into each tile's home block.  Nothing is
+// staged in shared memory: the windows sit in L2, and staging them cost a
+// CTA more than its taps did.
 //
 // The pole ladder moves under half a megabyte, so a launch's latency bounds
-// it, not bytes or operations.  The TPU split it into a dense launch and two
-// compacted list launches because a Pallas grid has one window shape; here
-// a CTA takes its slot's window from the slot's own keys, so one launch
-// serves every level and routing compacts nothing.  One point a thread,
-// its packed operand in one 16-byte load, the 4 * NF raw cells loaded
-// together through the read-only path (the home rows sit in L2), no
-// staging: 40 CTAs of 256 threads at the flagship's 2 x 5 slots.
+// it, not bytes or operations.  One point a thread, its packed operand in
+// one 16-byte load, the 4 * NF raw cells loaded together through the
+// read-only path (the home rows sit in L2): 40 CTAs of 256 threads at the
+// flagship's 2 x 5 slots.
 #include <limits.h>
 
 #include "gather_math.cuh"
@@ -53,24 +48,36 @@ namespace {
 
 using namespace lcs;
 
-constexpr int kThreads = 256;
 constexpr int kTileR = 8;
 constexpr int kTileC = 128;
 constexpr int kTile = kTileR * kTileC;
 constexpr int kSubW = 32;
 constexpr int kLadderThreads = 256;            // pole ladder: points per CTA
 constexpr int kLadderParts = kTile / kLadderThreads;   // CTAs per slot
-constexpr int kSmemLimit = 131072;   // dynamic shared memory opted into
 
+// a mod n in [0, n); windows lie within a period of the field, so the
+// division is the rare path
 __device__ __forceinline__ int pmod(int a, int n) {
+  if (a < 0) a += n;
+  if (a >= n) a -= n;
+  if (static_cast<unsigned>(a) < static_cast<unsigned>(n)) return a;
   const int r = a % n;
   return r < 0 ? r + n : r;
 }
 
-// torch.remainder / jnp.mod for floats: fmod, then the divisor's sign
+// torch.remainder / jnp.mod for floats with b > 0: fmod, then the
+// divisor's sign.  For |a| < 2b fmod is a itself or a - b, which is exact,
+// so the library call is the rare path (NaN takes it).
 template <typename T>
 __device__ __forceinline__ T remainder_f(T a, T b) {
-  T m = fmod(a, b);
+  T m;
+  if (a > -b && a < b) {
+    m = a;
+  } else if (a >= b && a < add_rn(b, b)) {
+    m = sub_rn(a, b);
+  } else {
+    m = fmod(a, b);
+  }
   if (m != T(0) && ((b < T(0)) != (m < T(0)))) m = add_rn(m, b);
   return m;
 }
@@ -117,31 +124,13 @@ __device__ __forceinline__ bool clip_taps(int* off, int w) {
   return bad;
 }
 
-// cooperative copy of the (NF, wy, wx) window at (y0, x0) into shared memory
-template <typename T, int NF>
-__device__ __forceinline__ void stage_window(T* win, const T* coeffs, int ny,
-                                             int nx, int y0, int x0, int wy,
-                                             int wx) {
-  const int64_t plane = static_cast<int64_t>(ny) * nx;
-  const int n = NF * wy * wx;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int c = e % wx;
-    const int rf = e / wx;
-    const int r = rf % wy;
-    const int f = rf / wy;
-    win[e] = coeffs[f * plane + static_cast<int64_t>(pmod(y0 + r, ny)) * nx +
-                    pmod(x0 + c, nx)];
-  }
-  __syncthreads();
-}
-
 // One parcel of a windowed spline tier: taps relative to the (wy, wx)
 // window at (y0, x0) (XFULL: mirrored columns, no x window).  Returns true
 // if a tap left the window.
 template <typename T, int ORDER, int NF, bool XFULL>
 __device__ __forceinline__ bool window_parcel(
-    const T* __restrict__ coeffs, const T* win, T yf, T xf, T ya, T xa,
-    int ny, int nx, int y0, int x0, int wy, int wx, T* acc) {
+    const T* __restrict__ coeffs, T yf, T xf, T ya, T xa, int ny, int nx,
+    int y0, int x0, int wy, int wx, T* acc) {
   constexpr int NT = ORDER + 1;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   int oy[NT], ox[NT];
@@ -164,119 +153,12 @@ __device__ __forceinline__ bool window_parcel(
       const T w = mul_rn(wyv[j], wxv[k]);
       const int col = XFULL ? ox[k] : pmod(x0 + ox[k], nx);
 #pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const T v = win != nullptr ? win[(f * wy + oy[j]) * wx + ox[k]]
-                                   : coeffs[f * plane + row + col];
-        acc[f] = add_rn(acc[f], mul_rn(w, v));
-      }
+      for (int f = 0; f < NF; ++f)
+        acc[f] = add_rn(acc[f],
+                        mul_rn(w, __ldg(coeffs + f * plane + row + col)));
     }
   }
   return bad;
-}
-
-__device__ __forceinline__ void finish_flag(bool bad, int* flags, int slot,
-                                            int* overflow, int bit) {
-  const int any = __syncthreads_or(bad) != 0;
-  if (threadIdx.x == 0) {
-    flags[slot] = any;
-    if (any && overflow != nullptr) atomicOr(overflow, 1 << bit);
-  }
-}
-
-// K2: one CTA per tile slot.  Dense mode (sel == nullptr): slot = tile,
-// gated by live[tile].  List mode: slot < *count runs tile sel[slot].
-template <typename T, int ORDER, int NF, bool XFULL>
-__global__ void __launch_bounds__(kThreads)
-tile_window_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
-                   T* __restrict__ out, int* __restrict__ flags,
-                   int* __restrict__ overflow, const int* __restrict__ y0map,
-                   const int* __restrict__ x0map, const int* __restrict__ live,
-                   const int* __restrict__ sel, const int* __restrict__ count,
-                   int ny, int nx, int ny_t, int nx_t, int wy, int wx, int bit,
-                   int stage) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int slot = blockIdx.x;
-  int tile = slot;
-  if (sel != nullptr) {
-    if (slot >= *count) {
-      if (threadIdx.x == 0) flags[slot] = 0;
-      return;
-    }
-    tile = sel[slot];
-  } else if (live[tile] == 0) {
-    if (threadIdx.x == 0) flags[slot] = 0;
-    return;
-  }
-  const int gx = nx_t / kTileC;
-  const int iy = tile / gx;
-  const int jx = tile - gx * iy;
-  const int y0 = y0map[tile];
-  const int x0 = XFULL ? 0 : x0map[tile];
-  const int64_t tplane = static_cast<int64_t>(ny_t) * nx_t;
-  const int64_t corner = static_cast<int64_t>(iy) * kTileR * nx_t +
-                         static_cast<int64_t>(jx) * kTileC;
-  T* win = nullptr;
-  if (!XFULL && stage) {
-    win = reinterpret_cast<T*>(smem);
-    stage_window<T, NF>(win, coeffs, ny, nx, y0, x0, wy, wx);
-  }
-  const T ya = folds[corner];
-  const T xa = folds[tplane + corner];
-  bool bad = false;
-  for (int p = threadIdx.x; p < kTile; p += kThreads) {
-    const int64_t at = corner + static_cast<int64_t>(p / kTileC) * nx_t +
-                       p % kTileC;
-    T acc[NF];
-    bad |= window_parcel<T, ORDER, NF, XFULL>(
-        coeffs, win, folds[at], folds[tplane + at], ya, xa, ny, nx, y0, x0,
-        wy, wx, acc);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) out[f * tplane + at] = acc[f];
-  }
-  finish_flag(bad, flags, slot, overflow, bit);
-}
-
-// K3: one CTA per (tile, quarter), 8 x 32 threads; each quarter has its own
-// (wy, 128) window at x0q[tile*4 + q], anchored at the quarter's first fold.
-template <typename T, int ORDER, int NF>
-__global__ void __launch_bounds__(kThreads)
-sub_window_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
-                  T* __restrict__ out, int* __restrict__ flags,
-                  int* __restrict__ overflow, const int* __restrict__ y0map,
-                  const int* __restrict__ x0q, const int* __restrict__ live,
-                  int ny, int nx, int ny_t, int nx_t, int wy, int bit,
-                  int stage) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int slot = blockIdx.x;
-  const int tile = slot / 4;
-  const int q = slot % 4;
-  if (live[tile] == 0) {
-    if (threadIdx.x == 0) flags[slot] = 0;
-    return;
-  }
-  const int gx = nx_t / kTileC;
-  const int iy = tile / gx;
-  const int jx = tile - gx * iy;
-  const int y0 = y0map[tile];
-  const int x0 = x0q[slot];
-  const int64_t tplane = static_cast<int64_t>(ny_t) * nx_t;
-  const int64_t corner = static_cast<int64_t>(iy) * kTileR * nx_t +
-                         static_cast<int64_t>(jx) * kTileC;
-  const int64_t corner_q = corner + q * kSubW;
-  T* win = nullptr;
-  if (stage) {
-    win = reinterpret_cast<T*>(smem);
-    stage_window<T, NF>(win, coeffs, ny, nx, y0, x0, wy, kTileC);
-  }
-  const int64_t at = corner_q + static_cast<int64_t>(threadIdx.x / kSubW) * nx_t +
-                     threadIdx.x % kSubW;
-  T acc[NF];
-  const bool bad = window_parcel<T, ORDER, NF, false>(
-      coeffs, win, folds[at], folds[tplane + at], folds[corner],
-      folds[tplane + corner_q], ny, nx, y0, x0, wy, kTileC, acc);
-#pragma unroll
-  for (int f = 0; f < NF; ++f) out[f * tplane + at] = acc[f];
-  finish_flag(bad, flags, slot, overflow, bit);
 }
 
 // ---------------------------------------------------------------------------
@@ -286,48 +168,46 @@ sub_window_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
 // Two launches a gather group replace tier A, tier A-sub and the ladder's
 // list launches, and with them the torch ops that routed tiles to them.
 //
-// tier_route_kernel, one CTA a home tile, every tile: block reductions give
-// the tile's window facts (the min/max of its parcels' unwrapped floors
-// anchored at the tile's first fold, the same per 32-column quarter anchored
-// at the quarter's first fold, the min/max of the plain fold floors), and
-// one thread evaluates from them, in the integer arithmetic of
-// ops/tiles.py route_tiles, whether the tile fits tier A-sub's four quarter
-// windows, tier A's window, and each ladder spec.  The ladder's capacities
-// need tiles in index order, so the last CTA to arrive (a __threadfence and
-// an atomic ticket) runs the three-pass first fit over all tiles: in pass p
-// a tile not yet taken tries the p-th ladder tier that fits it, and is
-// taken if its rank among the tiles trying that tier (in index order, after
-// the tier's count so far) is under the tier's capacity; one warp a tier
-// walks the tiles 32 at a time with a ballot.  It leaves each tile's choice
-// and window in `plan` (kPlanW ints a tile: tier, y0, x0 of quarters 0..3,
-// wy, wx or 0 for full longitude) and ORs bit 1 if a tile fits nothing.
+// tier_route_kernel, one CTA a home tile, every tile, eight parcels a
+// thread: block reductions give the tile's window facts (the min/max of its
+// parcels' unwrapped floors anchored at the tile's first fold, the same per
+// 32-column quarter anchored at the quarter's first fold, the min/max of
+// the plain fold floors), and the lanes of one warp evaluate from them, one
+// window a lane, in the integer arithmetic of ops/tiles.py route_tiles,
+// whether the tile fits tier A-sub's four quarter windows, tier A's window,
+// and each ladder tier's.  The ladder's capacities need tiles in index
+// order, so the last CTA to arrive (a __threadfence and an atomic ticket)
+// runs the three-pass first fit over all tiles: in each pass a tile not
+// yet taken tries the first ladder tier that fits it and that it has not
+// tried, and is taken if its rank among the tiles trying that tier (in
+// index order, after the tier's count so far) is under the tier's
+// capacity; the tiles' state sits in shared memory (4 bytes a tile, at
+// most kMaxTiles tiles) and a warp walks the tiles that try its tier with
+// ballots.  It leaves each tile's choice and window in `plan` (kPlanW ints
+// a tile: tier, y0, x0 of quarters 0..3, wy, wx or 0 for full longitude)
+// and ORs bit 1 if a tile fits nothing.
 //
-// tier_gather_kernel, one CTA a home tile: each thread gathers its parcels
-// against the tile's window (tier A-sub: its quarter's) with
-// window_parcel, reading the stack through L2; a full-longitude tier is a
-// branch the whole CTA takes.  A tile whose taps leave its window sets its
-// flag (tier A-sub: bit q for quarter q) and ORs bit 2 (tier A, A-sub) or
-// 5 + t (ladder tier t) into the overflow word.
+// tier_gather_kernel, one CTA a home tile: each thread gathers its four
+// parcels against the tile's window (tier A-sub: its quarter's) with
+// window_parcel; a full-longitude tier is a branch the whole CTA takes.  A
+// tile whose taps leave its window sets its flag (tier A-sub: bit q for
+// quarter q) and ORs bit 2 (tier A, A-sub) or 5 + t (ladder tier t) into
+// the overflow word.
 //
 // What bounds them: the folds are read by both (17.9 MB at the flagship, the
 // second time from L2) and the gather is K1's: latency of 16 * NF dependent-
 // free loads a parcel from an L2-resident window.  Every CTA is live (1,092
-// at the flagship, 8 a multiprocessor), nothing is staged, and no torch op
-// routes.
+// at the flagship), nothing is staged, and no torch op routes.
 
 constexpr int kMaxSpecs = 16;        // ladder tiers
-constexpr int kRouteThreads = 512;   // one warp a ladder tier in the plan
+constexpr int kRouteThreads = 128;   // eight parcels a thread, in one column
+constexpr int kRouteWarps = kRouteThreads / 32;
+constexpr int kGatherThreads = 256;  // four parcels a thread, in one column
 constexpr int kPlanW = 8;            // ints a tile in `plan`
-constexpr int kScratchW = 3;         // ymn - slop, xmn - slop, tier to try
+constexpr int kMaxTiles = 12288;     // the plan's state fits 48 KB of smem
 constexpr int kFitA = 16, kFitS = 17;   // bits of a tile's `fits` word
-static_assert(kMaxSpecs * 32 <= kRouteThreads, "one warp a ladder tier");
-
-struct TierLadder {
-  int n;
-  int wy[kMaxSpecs];
-  int wx[kMaxSpecs];    // 0: full longitude
-  int cap[kMaxSpecs];
-};
+static_assert(kRouteWarps == kTileC / kSubW, "a warp holds one quarter");
+static_assert(kGatherThreads % kTileC == 0, "a thread keeps its column");
 
 struct TierGeom {
   int ny, nx, ny_t, nx_t;
@@ -356,15 +236,16 @@ __device__ __forceinline__ bool window_holds(int mn, int mx, int m, int ulp,
   return mn - m - ulp >= start && mx + 2 + ulp <= start + w - 1;
 }
 
+// `lad`: n_specs ladder tiers of (wy, wx or 0 for full longitude, capacity),
+// on the device
 template <typename T>
-__global__ void __launch_bounds__(kRouteThreads)
-tier_route_kernel(const T* __restrict__ folds, int* __restrict__ plan,
-                  int* __restrict__ fits, int* __restrict__ scratch,
-                  int* __restrict__ overflow, unsigned* __restrict__ ticket,
-                  const TierGeom g, const TierLadder lad) {
-  constexpr int nwarps = kRouteThreads / 32;
+__global__ void __launch_bounds__(kRouteThreads, 12)
+tier_route_kernel(const T* __restrict__ folds, const int* __restrict__ lad,
+                  int n_specs, int* __restrict__ plan, int* __restrict__ fits,
+                  int* __restrict__ scratch, int* __restrict__ overflow,
+                  unsigned* __restrict__ ticket, const TierGeom g) {
   constexpr int nq = 10;   // y, x, plain y, plain x, quarter x: min and max
-  __shared__ int s_red[nq][nwarps];
+  __shared__ int s_red[nq][kRouteWarps];
   __shared__ int s_last;
   const int tile = blockIdx.x;
   const int n_tiles = gridDim.x;
@@ -375,20 +256,19 @@ tier_route_kernel(const T* __restrict__ folds, int* __restrict__ plan,
   const int64_t corner = static_cast<int64_t>(iy) * kTileR * g.nx_t +
                          static_cast<int64_t>(jx) * kTileC;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q = (threadIdx.x % kTileC) / kSubW;   // this thread's quarter
+  const int warp = threadIdx.x >> 5;   // the quarter of this thread's column
   const T ya = folds[corner];
   const T xa = folds[tplane + corner];
-  const T xqa = folds[tplane + corner + q * kSubW];
+  const T xqa = folds[tplane + corner + warp * kSubW];
   int v[nq];
 #pragma unroll
   for (int i = 0; i < nq; i += 2) {
     v[i] = INT_MAX;
     v[i + 1] = INT_MIN;
   }
-  for (int p = threadIdx.x; p < kTile; p += kRouteThreads) {
-    const int64_t at = corner + static_cast<int64_t>(p / kTileC) * g.nx_t +
-                       p % kTileC;
+#pragma unroll 4
+  for (int r = 0; r < kTileR; ++r) {
+    const int64_t at = corner + static_cast<int64_t>(r) * g.nx_t + threadIdx.x;
     const T yf = folds[at];
     const T xf = folds[tplane + at];
     const int fy = to_index(floor(yf));
@@ -412,142 +292,154 @@ tier_route_kernel(const T* __restrict__ folds, int* __restrict__ plan,
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (warp == 0) {
+    // every lane takes the tile's facts, then one window each: lane t the
+    // ladder's tier t, lane kFitA tier A's, lanes kFitS + q quarter q's
     int r[8];             // ymn ymx xmn xmx, plain ymn ymx xmn xmx
-    int x2mn[4], x2mx[4];
 #pragma unroll
     for (int i = 0; i < 8; i += 2) {
       r[i] = INT_MAX;
       r[i + 1] = INT_MIN;
-    }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      x2mn[k] = INT_MAX;
-      x2mx[k] = INT_MIN;
-    }
-    for (int w = 0; w < nwarps; ++w) {
-#pragma unroll
-      for (int i = 0; i < 8; i += 2) {
+      for (int w = 0; w < kRouteWarps; ++w) {
         r[i] = min(r[i], s_red[i][w]);
         r[i + 1] = max(r[i + 1], s_red[i + 1][w]);
       }
-      // warp w holds columns [32 * (w % 4), 32 * (w % 4) + 32)
-      x2mn[w % 4] = min(x2mn[w % 4], s_red[8][w]);
-      x2mx[w % 4] = max(x2mx[w % 4], s_red[9][w]);
     }
-    const int ymn = r[0], ymx = r[1], xmn = r[2], xmx = r[3];
+    const int ymn = r[0], ymx = r[1];
     // tiles within a cell of the mirror-remap zones take one more cell
     const bool edge = r[4] <= 1 || r[5] >= g.ny - 3 || r[6] <= 1 ||
                       r[7] >= g.nx - 3;
     const int ulp = edge ? 2 : 1;
     const int slop = g.m + ulp;
-    const int ylim = g.ny + 2 * g.ypad;
-    const int xlim = g.nx + 2 * g.xpad - kTileC;
-    const int y0a = window_start(ymn - slop, g.ypad, 8, ylim, g.wy);
-    const int x0a = window_start(xmn - slop, g.xpad, kSubW, xlim, g.wx);
-    const bool oky = window_holds(ymn, ymx, g.m, ulp, y0a, g.wy);
-    const bool fit_a = oky && window_holds(xmn, xmx, g.m, ulp, x0a, g.wx);
-    int x0s[4];
-    bool fit_s = g.sub && oky;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      x0s[k] = window_start(x2mn[k] - slop, g.xpad, kSubW, xlim, kTileC);
-      fit_s = fit_s && window_holds(x2mn[k], x2mx[k], g.m, ulp, x0s[k],
-                                    kTileC);
-    }
-    int word = (fit_a ? 1 << kFitA : 0) | (fit_s ? 1 << kFitS : 0);
-#pragma unroll
-    for (int t = 0; t < kMaxSpecs; ++t) {
-      if (t < lad.n) {
-        const int wxe = lad.wx[t] == 0 ? g.wx : lad.wx[t];
-        const int y0 = window_start(ymn - slop, g.ypad, 8, ylim, lad.wy[t]);
-        const int x0 = window_start(xmn - slop, g.xpad, kSubW, xlim, wxe);
-        const bool ok = window_holds(ymn, ymx, g.m, ulp, y0, lad.wy[t]) &&
-                        (lad.wx[t] == 0 ||
-                         window_holds(xmn, xmx, g.m, ulp, x0, wxe));
-        word |= ok ? 1 << t : 0;
-      }
-    }
+    const int q = lane - kFitS;
+    const bool quarter = q >= 0 && q < kRouteWarps;
+    const bool spec = lane < n_specs;
+    const int xmn = quarter ? s_red[8][q] : r[2];
+    const int xmx = quarter ? s_red[9][q] : r[3];
+    const int wy = spec ? __ldg(lad + 3 * lane) : g.wy;
+    const int wx = spec ? __ldg(lad + 3 * lane + 1) : quarter ? kTileC : g.wx;
+    const int wxe = wx == 0 ? g.wx : wx;
+    const int y0 = window_start(ymn - slop, g.ypad, 8, g.ny + 2 * g.ypad, wy);
+    const int x0 = window_start(xmn - slop, g.xpad, kSubW,
+                                g.nx + 2 * g.xpad - kTileC, wxe);
+    const bool ok = (spec || lane == kFitA || quarter) &&
+                    window_holds(ymn, ymx, g.m, ulp, y0, wy) &&
+                    (wx == 0 || window_holds(xmn, xmx, g.m, ulp, x0, wxe));
+    const unsigned b = __ballot_sync(0xffffffffu, ok);
+    const unsigned quarters = (1u << kRouteWarps) - 1u;
+    const bool fit_a = (b >> kFitA) & 1u;
+    const bool fit_s = g.sub && ((b >> kFitS) & quarters) == quarters;
+    const int y0a = __shfl_sync(0xffffffffu, y0, kFitA);
+    const int x0a = __shfl_sync(0xffffffffu, x0, kFitA);
     int* row = plan + static_cast<int64_t>(tile) * kPlanW;
-    row[0] = fit_s ? -2 : -1;
-    row[1] = y0a;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) row[2 + k] = fit_s ? x0s[k] : (k ? 0 : x0a);
-    row[6] = g.wy;
-    row[7] = fit_s ? kTileC : g.wx;
-    fits[tile] = word;
-    scratch[tile * kScratchW] = ymn - slop;
-    scratch[tile * kScratchW + 1] = xmn - slop;
+    if (lane == 0) {
+      row[0] = fit_s ? -2 : -1;
+      row[1] = y0a;
+      row[6] = g.wy;
+      row[7] = fit_s ? kTileC : g.wx;
+      fits[tile] = static_cast<int>(b & ((1u << n_specs) - 1u)) |
+                   (fit_a ? 1 << kFitA : 0) | (fit_s ? 1 << kFitS : 0);
+      scratch[2 * tile] = r[0] - slop;
+      scratch[2 * tile + 1] = r[2] - slop;
+    }
+    if (quarter) row[2 + q] = fit_s ? x0 : (q ? 0 : x0a);
     __threadfence();
-    s_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(n_tiles - 1);
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence();
+      s_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(n_tiles - 1);
+    }
   }
   __syncthreads();
   if (!s_last) return;
 
-  // the last CTA: every tile's facts are written; plan the ladder
+  // the last CTA: every tile's facts are written; plan the ladder.  The
+  // tiles' state lives in shared memory, so a pass reads no global memory:
+  // s_elig[i], the ladder tiers tile i has yet to try (0 once it is taken
+  // or if a base tier holds it); s_try[i], the tier it tries in this pass;
+  // s_tier[i], the tier that took it (kNone: none, kBase: a base tier)
   __threadfence();
-  __shared__ int s_wy[kMaxSpecs], s_wx[kMaxSpecs], s_cap[kMaxSpecs];
+  constexpr int kNone = 0xff, kBase = 0xfe;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned short* s_elig = reinterpret_cast<unsigned short*>(smem);
+  unsigned char* s_tier = smem + 2 * static_cast<size_t>(n_tiles);
+  unsigned char* s_try = s_tier + n_tiles;
+  __shared__ int s_cnt[kMaxSpecs];   // tiles each tier has taken so far
   __shared__ int s_uncovered;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int t = 0; t < kMaxSpecs; ++t) {
-      s_wy[t] = lad.wy[t];
-      s_wx[t] = lad.wx[t];
-      s_cap[t] = lad.cap[t];
-    }
-    s_uncovered = 0;
-  }
-  __syncthreads();
-  volatile int* vplan = plan;
-  volatile int* vfits = fits;
-  volatile int* vscr = scratch;
+  __shared__ int s_away[3];          // a tier turned a tile away in pass p
+  if (threadIdx.x < kMaxSpecs) s_cnt[threadIdx.x] = 0;
+  if (threadIdx.x < 3) s_away[threadIdx.x] = 0;
+  if (threadIdx.x == 0) s_uncovered = 0;
   const unsigned base_bits = (1u << kFitA) | (1u << kFitS);
   const unsigned spec_bits = (1u << kMaxSpecs) - 1u;
-  int cnt = 0;            // warp t: tiles tier t has taken so far
-  for (int pass = 0; pass < min(3, lad.n); ++pass) {
-    // the tier each tile tries in this pass: the pass-th that fits it
+  for (int i = threadIdx.x; i < n_tiles; i += kRouteThreads) {
+    const unsigned w = static_cast<unsigned>(__ldcg(fits + i));
+    const bool base = (w & base_bits) != 0;
+    s_elig[i] = base ? 0 : static_cast<unsigned short>(w & spec_bits);
+    s_tier[i] = base ? kBase : kNone;
+  }
+  __syncthreads();
+  for (int pass = 0; pass < min(3, n_specs); ++pass) {
+    // the tier each tile tries in this pass: the first it has not tried
     for (int i = threadIdx.x; i < n_tiles; i += kRouteThreads) {
-      const unsigned w = static_cast<unsigned>(vfits[i]);
-      int t = -1;
-      if ((w & base_bits) == 0 && vplan[i * kPlanW] < 0) {
-        unsigned e = w & spec_bits;
-        for (int k = 0; k < pass; ++k) e &= e - 1;   // drop the tried ones
-        t = e ? __ffs(e) - 1 : -1;
-      }
-      vscr[i * kScratchW + 2] = t;
+      const unsigned e = s_elig[i];
+      s_try[i] = e ? __ffs(e) - 1 : kNone;
+      s_elig[i] = static_cast<unsigned short>(e & (e - 1u));
     }
     __syncthreads();
-    if (warp < lad.n) {
-      int seen = 0;       // tiles before this chunk that try tier `warp`
-      for (int i0 = 0; i0 < n_tiles; i0 += 32) {
-        const int i = i0 + lane;
-        const bool tries = i < n_tiles && vscr[i * kScratchW + 2] == warp;
-        const unsigned b = __ballot_sync(0xffffffffu, tries);
-        const int rank = cnt + seen + __popc(b & ((1u << lane) - 1u));
-        if (tries && rank < s_cap[warp]) vplan[i * kPlanW] = warp;
-        seen += __popc(b);
+    // one warp a tier walks the tiles in index order, 4 x 32 at a time
+    for (int t = warp; t < n_specs; t += kRouteWarps) {
+      const int cap = __ldg(lad + 3 * t + 2);
+      const int cnt = s_cnt[t];
+      int seen = 0;       // tiles so far that try tier t in this pass
+      for (int i0 = 0; i0 < n_tiles; i0 += 4 * 32) {
+        bool tries[4];
+        unsigned b[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + 32 * u + lane;
+          tries[u] = i < n_tiles && s_try[i] == t;
+          b[u] = __ballot_sync(0xffffffffu, tries[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + 32 * u + lane;
+          const int rank = cnt + seen + __popc(b[u] & ((1u << lane) - 1u));
+          if (tries[u] && rank < cap) {
+            s_tier[i] = t;
+            s_elig[i] = 0;
+          }
+          seen += __popc(b[u]);
+        }
       }
-      cnt += min(seen, max(s_cap[warp] - cnt, 0));
+      __syncwarp();
+      if (lane == 0) {
+        const int room = max(cap - cnt, 0);
+        s_cnt[t] = cnt + min(seen, room);
+        if (seen > room) s_away[pass] = 1;
+      }
     }
     __syncthreads();
+    if (!s_away[pass]) break;   // every tile that tried was taken
   }
   // each taken tile's window; a tile that fits nothing raises bit 1
   const int ylim = g.ny + 2 * g.ypad;
   const int xlim = g.nx + 2 * g.xpad - kTileC;
   bool uncovered = false;
   for (int i = threadIdx.x; i < n_tiles; i += kRouteThreads) {
-    const int t = vplan[i * kPlanW];
-    if (t >= 0) {
-      const int wy = s_wy[t], wx = s_wx[t];
-      vplan[i * kPlanW + 1] =
-          window_start(vscr[i * kScratchW], g.ypad, 8, ylim, wy);
-      vplan[i * kPlanW + 2] =
-          wx == 0 ? 0
-                  : window_start(vscr[i * kScratchW + 1], g.xpad, kSubW, xlim,
-                                 wx);
-      vplan[i * kPlanW + 6] = wy;
-      vplan[i * kPlanW + 7] = wx;
-    } else if ((static_cast<unsigned>(vfits[i]) & base_bits) == 0) {
+    const int t = s_tier[i];
+    if (t < kMaxSpecs) {
+      const int wy = __ldg(lad + 3 * t), wx = __ldg(lad + 3 * t + 1);
+      int* row = plan + static_cast<int64_t>(i) * kPlanW;
+      row[0] = t;
+      row[1] = window_start(__ldcg(scratch + 2 * i), g.ypad, 8, ylim, wy);
+      row[2] = wx == 0 ? 0
+                       : window_start(__ldcg(scratch + 2 * i + 1), g.xpad,
+                                      kSubW, xlim, wx);
+      row[6] = wy;
+      row[7] = wx;
+    } else if (t == kNone) {
       uncovered = true;
     }
   }
@@ -559,13 +451,12 @@ tier_route_kernel(const T* __restrict__ folds, int* __restrict__ plan,
   }
 }
 
-template <typename T, int ORDER, int NF, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int ORDER, int NF>
+__global__ void __launch_bounds__(kGatherThreads, 4)
 tier_gather_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
                    T* __restrict__ out, const int* __restrict__ plan,
                    int* __restrict__ flags, int* __restrict__ overflow,
                    int ny, int nx, int ny_t, int nx_t) {
-  static_assert(THREADS % kTileC == 0, "a thread keeps its column");
   __shared__ int s_flag;
   const int tile = blockIdx.x;
   const int* row = plan + static_cast<int64_t>(tile) * kPlanW;
@@ -586,19 +477,18 @@ tier_gather_kernel(const T* __restrict__ coeffs, const T* __restrict__ folds,
   if (threadIdx.x == 0) s_flag = 0;
   __syncthreads();
   bool bad = false;
-  for (int p = threadIdx.x; p < kTile; p += THREADS) {
+  for (int p = threadIdx.x; p < kTile; p += kGatherThreads) {
     const int64_t at = corner + static_cast<int64_t>(p / kTileC) * nx_t +
                        p % kTileC;
     const T yf = folds[at];
     const T xf = folds[tplane + at];
     T acc[NF];
     if (wx == 0) {
-      bad |= window_parcel<T, ORDER, NF, true>(coeffs, nullptr, yf, xf, ya,
-                                               xa, ny, nx, y0, 0, wy, 0, acc);
+      bad |= window_parcel<T, ORDER, NF, true>(coeffs, yf, xf, ya, xa, ny, nx,
+                                               y0, 0, wy, 0, acc);
     } else {
-      bad |= window_parcel<T, ORDER, NF, false>(coeffs, nullptr, yf, xf, ya,
-                                                xa, ny, nx, y0, x0, wy, wx,
-                                                acc);
+      bad |= window_parcel<T, ORDER, NF, false>(coeffs, yf, xf, ya, xa, ny,
+                                                nx, y0, x0, wy, wx, acc);
     }
 #pragma unroll
     for (int f = 0; f < NF; ++f) out[f * tplane + at] = acc[f];
@@ -743,100 +633,16 @@ pole_ladder_kernel(const T* __restrict__ raw, const T* __restrict__ pack,
   if (any && threadIdx.x == 0) atomicOr(overflow, 1 << bit);
 }
 
-template <typename T, int ORDER, int NF, bool XFULL>
-cudaError_t launch_tile(const T* coeffs, const T* folds, T* out, int* flags,
-                        int* overflow, const int* y0map, const int* x0map,
-                        const int* live, const int* sel, const int* count,
-                        int n_slots, int ny, int nx, int ny_t, int nx_t,
-                        int wy, int wx, int bit, int stage_bytes,
-                        cudaStream_t s) {
-  auto kernel = tile_window_kernel<T, ORDER, NF, XFULL>;
-  // once per instantiation: opt in to more than 48 KB of dynamic smem
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-  if (attr != cudaSuccess) return attr;
-  kernel<<<n_slots, kThreads, stage_bytes, s>>>(
-      coeffs, folds, out, flags, overflow, y0map, x0map, live, sel, count, ny,
-      nx, ny_t, nx_t, wy, wx, bit, stage_bytes > 0);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_tile(const void* coeffs, const void* folds, void* out,
-                  void* flags, void* overflow, const void* y0map,
-                  const void* x0map, const void* live, const void* sel,
-                  const void* count, int n_slots, int ny, int nx, int ny_t,
-                  int nx_t, int order, int nf, long long f0, int wy, int wx,
-                  int bit, int stage_bytes, void* stream) {
-  if (stage_bytes < 0 || stage_bytes > kSmemLimit || n_slots <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const T* c = static_cast<const T*>(coeffs) + static_cast<int64_t>(f0) * ny * nx;
-  const bool xfull = x0map == nullptr;
-#define TILE_CASE(O, F, X)                                                     \
-  if (order == O && nf == F && xfull == X)                                     \
-    return static_cast<int>(launch_tile<T, O, F, X>(                          \
-        c, static_cast<const T*>(folds), static_cast<T*>(out),                \
-        static_cast<int*>(flags), static_cast<int*>(overflow),                \
-        static_cast<const int*>(y0map), static_cast<const int*>(x0map),       \
-        static_cast<const int*>(live), static_cast<const int*>(sel),          \
-        static_cast<const int*>(count), n_slots, ny, nx, ny_t, nx_t, wy, wx,  \
-        bit, X ? 0 : stage_bytes, static_cast<cudaStream_t>(stream)));
-  TILE_CASE(3, 4, false) TILE_CASE(3, 4, true)
-  TILE_CASE(3, 2, false) TILE_CASE(3, 2, true)
-  TILE_CASE(1, 4, false) TILE_CASE(1, 4, true)
-  TILE_CASE(1, 2, false) TILE_CASE(1, 2, true)
-#undef TILE_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <typename T, int ORDER, int NF>
-cudaError_t launch_sub(const T* coeffs, const T* folds, T* out, int* flags,
-                       int* overflow, const int* y0map, const int* x0q,
-                       const int* live, int n_tiles, int ny, int nx, int ny_t,
-                       int nx_t, int wy, int bit, int stage_bytes,
-                       cudaStream_t s) {
-  auto kernel = sub_window_kernel<T, ORDER, NF>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-  if (attr != cudaSuccess) return attr;
-  kernel<<<4 * n_tiles, kThreads, stage_bytes, s>>>(
-      coeffs, folds, out, flags, overflow, y0map, x0q, live, ny, nx, ny_t,
-      nx_t, wy, bit, stage_bytes > 0);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_sub(const void* coeffs, const void* folds, void* out, void* flags,
-                 void* overflow, const void* y0map, const void* x0q,
-                 const void* live, int n_tiles, int ny, int nx, int ny_t,
-                 int nx_t, int order, int nf, long long f0, int wy, int bit,
-                 int stage_bytes, void* stream) {
-  if (stage_bytes < 0 || stage_bytes > kSmemLimit || n_tiles <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const T* c = static_cast<const T*>(coeffs) + static_cast<int64_t>(f0) * ny * nx;
-#define SUB_CASE(O, F)                                                         \
-  if (order == O && nf == F)                                                   \
-    return static_cast<int>(launch_sub<T, O, F>(                              \
-        c, static_cast<const T*>(folds), static_cast<T*>(out),                \
-        static_cast<int*>(flags), static_cast<int*>(overflow),                \
-        static_cast<const int*>(y0map), static_cast<const int*>(x0q),         \
-        static_cast<const int*>(live), n_tiles, ny, nx, ny_t, nx_t, wy, bit,  \
-        stage_bytes, static_cast<cudaStream_t>(stream)));
-  SUB_CASE(3, 4) SUB_CASE(3, 2) SUB_CASE(1, 4) SUB_CASE(1, 2)
-#undef SUB_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T, int ORDER, int NF, int THREADS>
 cudaError_t launch_tier(const T* coeffs, const T* folds, T* out, int* plan,
                         int* fits, int* flags, int* scratch, int* overflow,
                         unsigned* ticket, int n_tiles, const TierGeom& g,
-                        const TierLadder& lad, cudaStream_t s) {
-  tier_route_kernel<T><<<n_tiles, kRouteThreads, 0, s>>>(
-      folds, plan, fits, scratch, overflow, ticket, g, lad);
+                        const int* lad, int n_specs, cudaStream_t s) {
+  tier_route_kernel<T><<<n_tiles, kRouteThreads, 4 * n_tiles, s>>>(
+      folds, lad, n_specs, plan, fits, scratch, overflow, ticket, g);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tier_gather_kernel<T, ORDER, NF, THREADS><<<n_tiles, THREADS, 0, s>>>(
+  tier_gather_kernel<T, ORDER, NF><<<n_tiles, kGatherThreads, 0, s>>>(
       coeffs, folds, out, plan, flags, overflow, g.ny, g.nx, g.ny_t, g.nx_t);
   return cudaGetLastError();
 }
@@ -847,33 +653,24 @@ int dispatch_tier(const void* coeffs, const void* folds, void* out,
                   void* overflow, void* ticket, int ny, int nx, int ny_t,
                   int nx_t, int order, int nf, long long f0, int wy, int wx,
                   int ypad, int xpad, int sub, int n_specs, const int* specs,
-                  int threads, void* stream) {
+                  void* stream) {
   if (n_specs < 0 || n_specs > kMaxSpecs || ny_t % kTileR || nx_t % kTileC ||
-      ny_t <= 0 || nx_t <= 0 || (n_specs > 0 && specs == nullptr))
+      ny_t <= 0 || nx_t <= 0 || (n_specs > 0 && specs == nullptr) ||
+      ny_t / kTileR * (nx_t / kTileC) > kMaxTiles)
     return static_cast<int>(cudaErrorInvalidValue);
   TierGeom g{ny, nx, ny_t, nx_t, ypad, xpad, wy, wx, order == 3 ? 2 : 1,
              sub != 0};
-  TierLadder lad{};
-  lad.n = n_specs;
-  for (int t = 0; t < n_specs; ++t) {
-    lad.wy[t] = specs[3 * t];
-    lad.wx[t] = specs[3 * t + 1];
-    lad.cap[t] = specs[3 * t + 2];
-  }
   const int n_tiles = ny_t / kTileR * (nx_t / kTileC);
   const T* c = static_cast<const T*>(coeffs) + static_cast<int64_t>(f0) * ny * nx;
-#define TIER_CASE(O, F, N)                                                     \
-  if (order == O && nf == F && threads == N)                                   \
-    return static_cast<int>(launch_tier<T, O, F, N>(                          \
+#define TIER_CASE(O, F)                                                        \
+  if (order == O && nf == F)                                                   \
+    return static_cast<int>(launch_tier<T, O, F>(                             \
         c, static_cast<const T*>(folds), static_cast<T*>(out),                \
         static_cast<int*>(plan), static_cast<int*>(fits),                     \
         static_cast<int*>(flags), static_cast<int*>(scratch),                 \
         static_cast<int*>(overflow), static_cast<unsigned*>(ticket), n_tiles, \
-        g, lad, static_cast<cudaStream_t>(stream)));
-#define TIER_SHAPES(O, F) TIER_CASE(O, F, 256) TIER_CASE(O, F, 512)            \
-  TIER_CASE(O, F, 1024)
-  TIER_SHAPES(3, 4) TIER_SHAPES(3, 2) TIER_SHAPES(1, 4) TIER_SHAPES(1, 2)
-#undef TIER_SHAPES
+        g, specs, n_specs, static_cast<cudaStream_t>(stream)));
+  TIER_CASE(3, 4) TIER_CASE(3, 2) TIER_CASE(1, 4) TIER_CASE(1, 2)
 #undef TIER_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -909,51 +706,20 @@ int dispatch_ladder(const void* raw, const void* pack, void* out,
 // live (list mode), sel/count (dense mode), overflow (no bit to set; the
 // pole ladder needs it), levels (the pole ladder's per-slot level output).
 // Each returns cudaGetLastError() after the launch (0 = launched).
-#define LCS_TILE_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* coeffs, const void* folds, void* out,        \
-                      void* flags, void* overflow, const void* y0map,          \
-                      const void* x0map, const void* live, const void* sel,    \
-                      const void* count, int n_slots, int ny, int nx,          \
-                      int ny_t, int nx_t, int order, int nf, long long f0,     \
-                      int wy, int wx, int bit, int stage_bytes,                \
-                      void* stream) {                                          \
-    return dispatch_tile<T>(coeffs, folds, out, flags, overflow, y0map, x0map, \
-                            live, sel, count, n_slots, ny, nx, ny_t, nx_t,     \
-                            order, nf, f0, wy, wx, bit, stage_bytes, stream);  \
-  }
-LCS_TILE_ENTRY(tile_window_gather_f32, float)
-LCS_TILE_ENTRY(tile_window_gather_f64, double)
-#undef LCS_TILE_ENTRY
-
-#define LCS_SUB_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const void* coeffs, const void* folds, void* out,        \
-                      void* flags, void* overflow, const void* y0map,          \
-                      const void* x0q, const void* live, int n_tiles, int ny,  \
-                      int nx, int ny_t, int nx_t, int order, int nf,           \
-                      long long f0, int wy, int bit, int stage_bytes,          \
-                      void* stream) {                                          \
-    return dispatch_sub<T>(coeffs, folds, out, flags, overflow, y0map, x0q,    \
-                           live, n_tiles, ny, nx, ny_t, nx_t, order, nf, f0,   \
-                           wy, bit, stage_bytes, stream);                      \
-  }
-LCS_SUB_ENTRY(sub_window_gather_f32, float)
-LCS_SUB_ENTRY(sub_window_gather_f64, double)
-#undef LCS_SUB_ENTRY
-
 // tier_window_gather: both launches of a gather group's spline tiers.
-// `specs` is a host array of n_specs (wy, wx or 0, capacity) ladder tiers;
-// `ticket` a device word that is 0 between launches.
+// `specs` is a device array of n_specs (wy, wx or 0, capacity) ladder
+// tiers; `ticket` a device word that is 0 between launches.
 #define LCS_TIER_ENTRY(NAME, T)                                                \
   extern "C" int NAME(const void* coeffs, const void* folds, void* out,        \
                       void* plan, void* fits, void* flags, void* scratch,      \
                       void* overflow, void* ticket, int ny, int nx, int ny_t,  \
                       int nx_t, int order, int nf, long long f0, int wy,       \
                       int wx, int ypad, int xpad, int sub, int n_specs,        \
-                      const int* specs, int threads, void* stream) {           \
+                      const int* specs, void* stream) {                        \
     return dispatch_tier<T>(coeffs, folds, out, plan, fits, flags, scratch,    \
                             overflow, ticket, ny, nx, ny_t, nx_t, order, nf,   \
                             f0, wy, wx, ypad, xpad, sub, n_specs, specs,       \
-                            threads, stream);                                  \
+                            stream);                                           \
   }
 LCS_TIER_ENTRY(tier_window_gather_f32, float)
 LCS_TIER_ENTRY(tier_window_gather_f64, double)

@@ -1,30 +1,22 @@
-"""K2 ``tile_window_gather``, K3 ``sub_window_gather`` and the pole ladder
+"""``tier_window_gather`` (the spline window tiers) and the pole ladder
 ``pole_ladder_gather``: the hand-written CUDA kernels of the ``blockspec``
 route (``csrc/window_gather.cu``).
 
 Each wrapper takes the arguments of its plain version in
 ``ops/window_interp.py``.  Tensors on the CPU take the plain version; CUDA
 tensors launch the kernel or raise — there is no fallback.  The kernels
-read their slot counts on the device, and the pole ladder picks each slot's
-level there, so no launch needs a host synchronisation.  ``LAUNCHES``
-counts kernel launches by kernel and mode.
+choose on the device: every tile routes itself to its window tier and the
+pole ladder picks each slot's level, so no launch needs a host
+synchronisation and no torch op routes.  ``LAUNCHES`` counts kernel
+launches by kernel.
 
 The launch path is kept short, because most of these kernels run for a few
 microseconds: the entry point and the stream come from ``ops/_launch.py``,
 and device, dtype and contiguity are checked in one pass over the tensors,
-which builds a message only when it fails.  The tensors that every spline
-launch of a gather group shares (the stack, the folds, the output and the
-overflow word) can be checked once for the group with ``shared_tensors``
-and handed to the group's launches as ``shared=``; a launch trusts the
-check only for the very tensors it was made on.
-
-A window of at most ``STAGE_BYTES`` is staged into shared memory (tier A
-and A-sub in float32; see ``staged``); wider windows, every
-full-longitude tier and the pole windows read the stack through L2.
+which builds a message only when it fails.
 """
 from __future__ import annotations
 
-import ctypes
 from functools import lru_cache
 
 import torch
@@ -32,29 +24,19 @@ import torch
 from . import pole as P
 from . import window_interp as W
 from ._launch import SUFFIX, entry, stream
-from .tiles import TILE_C, TILE_R, WX, coeff_pad_dims
+from .tiles import TILE_C, TILE_R, WX, coeff_pad_dims, device_ints
 
-__all__ = ["LAUNCHES", "STAGE_BYTES", "TIER_THREADS", "empty_launch",
-           "pole_ladder_gather", "reset_launches", "shared_tensors", "staged",
-           "sub_window_gather", "tier_window_gather", "tile_window_gather"]
+__all__ = ["LAUNCHES", "MAX_TILES", "empty_launch", "pole_ladder_gather",
+           "reset_launches", "tier_window_gather"]
 
 LAUNCHES = {"tier_window_gather.route": 0, "tier_window_gather.gather": 0,
-            "tile_window_gather.dense": 0, "tile_window_gather.list": 0,
-            "sub_window_gather": 0, "pole_ladder_gather": 0,
-            "empty_launch": 0}
-TIER_THREADS = 256            # threads of a tier_gather_kernel CTA
-STAGE_BYTES = 128 * 1024      # the kernels opt in to this much shared memory
+            "pole_ladder_gather": 0, "empty_launch": 0}
+MAX_TILES = 12288     # the route kernel plans in 48 KB of shared memory
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def staged(nf: int, wy: int, wx: int | None, dtype: torch.dtype) -> bool:
-    """Whether a (nf, wy, wx) window is staged in shared memory."""
-    size = torch.finfo(dtype).bits // 8
-    return wx is not None and nf * wy * wx * size <= STAGE_BYTES
 
 
 def _fits(tensors, dtype, index) -> bool:
@@ -85,23 +67,6 @@ def _check(name, floats, ints):
     raise TypeError(f"{name}: index tensors must be int32")
 
 
-def shared_tensors(coeffs, folds, out, overflow):
-    """Check once the tensors that every spline launch of a gather group
-    shares; the result goes to the group's launches as ``shared=``."""
-    return (coeffs, folds, out, overflow,
-            *_check("shared_tensors", (coeffs, folds, out), (overflow,)))
-
-
-def _check_spline(name, coeffs, folds, out, overflow, ints, shared):
-    """``_check`` of a spline launch; ``shared`` (``shared_tensors``)
-    vouches for the four tensors it was made on."""
-    if (shared is not None and shared[0] is coeffs and shared[1] is folds
-            and shared[2] is out and shared[3] is overflow
-            and _fits(ints, torch.int32, shared[5])):
-        return shared[4], shared[5]
-    return _check(name, (coeffs, folds, out), (overflow, *ints))
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -112,71 +77,10 @@ def _launched(name, rc):
     LAUNCHES[name] += 1
 
 
-def tile_window_gather(coeffs, folds, out, flags, overflow, y0map, x0map, *,
-                       f0, nf, order, wy, wx, bit, live=None, sel=None,
-                       count=None, shared=None, stage=True):
-    """K2 (see ``window_interp.tile_window_gather_plain``).  ``stage=False``
-    reads the stack through L2 whatever the window's size."""
-    if not (coeffs.is_cuda or folds.is_cuda or out.is_cuda):
-        return W.tile_window_gather_plain(
-            coeffs, folds, out, flags, overflow, y0map, x0map, f0=f0, nf=nf,
-            order=order, wy=wy, wx=wx, bit=bit, live=live, sel=sel,
-            count=count)
-    dense = sel is None
-    name = "tile_window_gather.dense" if dense else "tile_window_gather.list"
-    dtype, index = _check_spline(name, coeffs, folds, out, overflow,
-                                 (flags, y0map, x0map, live, sel, count),
-                                 shared)
-    nfields, ny, nx = coeffs.shape
-    _, ny_t, nx_t = folds.shape
-    if order not in (1, 3) or nf not in (2, 4) or f0 + nf > nfields:
-        raise ValueError(f"{name}: order {order}, fields [{f0}, {f0 + nf}) "
-                         f"of {nfields}")
-    if out.shape != (nf, ny_t, nx_t) or (dense and live is None):
-        raise ValueError(f"{name}: out {tuple(out.shape)}, live {live}")
-    n_slots = ny_t // 8 * (nx_t // 128) if dense else sel.shape[0]
-    stage = (nf * wy * wx * out.element_size()
-             if stage and staged(nf, wy, wx, dtype) else 0)
-    rc = entry("tile_window_gather", dtype)(
-        coeffs.data_ptr(), folds.data_ptr(), out.data_ptr(), flags.data_ptr(),
-        _ptr(overflow), y0map.data_ptr(), _ptr(x0map), _ptr(live), _ptr(sel),
-        _ptr(count), n_slots, ny, nx, ny_t, nx_t, order, nf, f0, wy, wx or 0,
-        bit, stage, stream(index))
-    _launched(name, rc)
-
-
-def sub_window_gather(coeffs, folds, out, flags, overflow, y0map, x0q, live,
-                      *, f0, nf, order, wy, bit, shared=None, stage=True):
-    """K3 (see ``window_interp.sub_window_gather_plain``).  ``stage=False``
-    reads the stack through L2."""
-    if not (coeffs.is_cuda or folds.is_cuda or out.is_cuda):
-        return W.sub_window_gather_plain(
-            coeffs, folds, out, flags, overflow, y0map, x0q, live, f0=f0,
-            nf=nf, order=order, wy=wy, bit=bit)
-    name = "sub_window_gather"
-    dtype, index = _check_spline(name, coeffs, folds, out, overflow,
-                                 (flags, y0map, x0q, live), shared)
-    nfields, ny, nx = coeffs.shape
-    _, ny_t, nx_t = folds.shape
-    if order not in (1, 3) or nf not in (2, 4) or f0 + nf > nfields:
-        raise ValueError(f"{name}: order {order}, fields [{f0}, {f0 + nf}) "
-                         f"of {nfields}")
-    stage = nf * wy * 128 * out.element_size() \
-        if stage and staged(nf, wy, 128, dtype) else 0
-    rc = entry(name, dtype)(
-        coeffs.data_ptr(), folds.data_ptr(), out.data_ptr(), flags.data_ptr(),
-        _ptr(overflow), y0map.data_ptr(), x0q.data_ptr(), live.data_ptr(),
-        ny_t // 8 * (nx_t // 128), ny, nx, ny_t, nx_t, order, nf, f0, wy, bit,
-        stage, stream(index))
-    _launched(name, rc)
-
-
 @lru_cache(maxsize=64)
-def _ladder_specs(ladder: tuple):
-    """The host array of (wy, wx or 0, capacity) that the entry point
-    reads its ladder from."""
-    flat = [v or 0 for spec in ladder for v in spec]
-    return (ctypes.c_int * max(len(flat), 1))(*flat)
+def _ladder_on(ladder: tuple, device: torch.device) -> torch.Tensor:
+    """The ladder on the device: (wy, wx or 0, capacity) a tier."""
+    return device_ints(tuple(v or 0 for spec in ladder for v in spec), device)
 
 
 @lru_cache(maxsize=8)
@@ -189,7 +93,7 @@ def _ticket(index: int) -> torch.Tensor:
 
 
 def tier_window_gather(coeffs, folds, out, plan, fits, flags, overflow, *,
-                       f0, nf, order, wy, ladder, sub, threads=TIER_THREADS):
+                       f0, nf, order, wy, ladder, sub):
     """The spline tiers of a gather group in two launches (see
     ``window_interp.tier_window_gather_plain``): ``tier_route_kernel``
     routes every tile, ``tier_gather_kernel`` gathers it."""
@@ -205,9 +109,12 @@ def tier_window_gather(coeffs, folds, out, plan, fits, flags, overflow, *,
     n_tiles = ny_t // TILE_R * (nx_t // TILE_C)
     ladder = tuple(tuple(spec) for spec in ladder)
     if (order not in (1, 3) or nf not in (2, 4) or f0 < 0
-            or f0 + nf > nfields or len(ladder) > W.MAX_TIERS):
+            or f0 + nf > nfields or len(ladder) > W.MAX_TIERS
+            or n_tiles > MAX_TILES):
         raise ValueError(f"{name}: order {order}, fields [{f0}, {f0 + nf}) "
-                         f"of {nfields}, {len(ladder)} ladder tiers")
+                         f"of {nfields}, {len(ladder)} ladder tiers (at most "
+                         f"{W.MAX_TIERS}), {n_tiles} tiles (at most "
+                         f"{MAX_TILES})")
     if (folds.shape[0] != 2 or ny_t % TILE_R or nx_t % TILE_C
             or out.shape != (nf, ny_t, nx_t)
             or plan.shape != (n_tiles, W.PLAN_W) or fits.numel() != n_tiles
@@ -216,13 +123,14 @@ def tier_window_gather(coeffs, folds, out, plan, fits, flags, overflow, *,
                          f"{tuple(out.shape)}, plan {tuple(plan.shape)}, "
                          f"fits, flags or overflow")
     ypad, xpad = coeff_pad_dims(ny, nx)
-    scratch = torch.empty((n_tiles, 3), dtype=torch.int32, device=out.device)
+    scratch = torch.empty((n_tiles, 2), dtype=torch.int32, device=out.device)
+    specs = _ladder_on(ladder, out.device) if ladder else None
     rc = entry(name, dtype)(
         coeffs.data_ptr(), folds.data_ptr(), out.data_ptr(), plan.data_ptr(),
         fits.data_ptr(), flags.data_ptr(), scratch.data_ptr(),
         overflow.data_ptr(), _ticket(index).data_ptr(), ny, nx, ny_t, nx_t,
         order, nf, f0, wy, WX, ypad, xpad, int(bool(sub)), len(ladder),
-        _ladder_specs(ladder), threads, stream(index))
+        _ptr(specs), stream(index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES["tier_window_gather.route"] += 1

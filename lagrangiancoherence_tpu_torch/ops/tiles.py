@@ -1,4 +1,11 @@
-"""Tile routing of the windowed gather — torch ops on the device.
+"""Tile geometry and routing of the windowed gather — torch ops on the device.
+
+The gather's main path takes from here its geometry (``tile_folds``,
+``capped_ladder``, the ladders) and routes inside its kernel
+(``ops/cuda_window.py`` ``tier_window_gather``).  ``route_tiles`` is the
+routing restated as JAX runs it, ahead of the launches, in torch ops: the
+tests pin it to JAX's ``debug_flags`` and hold the kernel's plain version
+against it; nothing else calls it.
 
 Counterpart of the routing half of ``lagrangiancoherence_tpu/ops/
 pallas_interp.py`` ``pallas_interp_multi`` (non-``dma-all`` engines).  The

@@ -1,14 +1,23 @@
 """The windowed gather of the ``blockspec`` route — plain PyTorch versions of
-K2, K3 and the pole ladder, and the routed evaluation that drives them.
+the spline tiers' routed gather and of the pole ladder, and the routed
+evaluation that drives them.
 
 Counterpart of ``lagrangiancoherence_tpu/ops/pallas_interp.py``
-``pallas_interp_multi`` with a non-``dma-all`` engine: tier A, then tier
-A-sub, then the escalation ladder, then the sorted-slot pole path, each
-tile or slot evaluated against the window that routing (``ops/tiles.py``,
-``ops/pole.py``) proved for it.  The functions here are the plain versions
-that the CUDA kernels (``ops/cuda_window.py``) are held against, with the
-kernels' signatures: they write their tiles into a shared output in place
-and a flag per slot, and OR their overflow bit into a device word.
+``pallas_interp_multi`` with a non-``dma-all`` engine: tier A, tier A-sub
+and the escalation ladder, then the sorted-slot pole path, each tile or
+slot evaluated against the window that holds its taps.  The functions here
+are the plain versions that the CUDA kernels (``ops/cuda_window.py``) are
+held against, with the kernels' signatures: they write their tiles into a
+shared output in place and a flag per tile, and OR their overflow bits
+into a device word.
+
+The spline tiers come twice.  ``tier_window_gather_plain`` is the plain
+version of the kernels: every tile derives its own window facts and routes
+itself.  ``tiles.route_tiles`` with ``spline_launches`` and the per-tier
+``tile_window_gather_plain`` and ``sub_window_gather_plain`` is the route
+restated as JAX runs it (routing first, then one launch a tier), which the
+tests pin to JAX's ``debug_flags`` and hold the former against; nothing
+else calls it.
 
 Values: an unflagged tile's taps are the same cells the direct gather
 (``ops/interp.py``, K1) reads, accumulated in the same order, so they agree
@@ -23,7 +32,6 @@ tiers), or directly (the pole path's raw rows).
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -32,7 +40,7 @@ from . import pole as P
 from .interp import _axis_taps, _cubic_weights, _to_index
 from .tiles import (N_SUB, SUB_W, TILE_C, TILE_R, WX, X_GRAN, _floor_int,
                     _fold_floor_mm, _tile_minmax, capped_ladder,
-                    coeff_pad_dims, route_tiles, tile_folds, unwrap_k)
+                    coeff_pad_dims, tile_folds, unwrap_k)
 
 __all__ = ["FIT_A", "FIT_S", "Launch", "PLAN_W", "kernel_functions",
            "plan_tiers", "pole_ladder_gather_plain", "pole_launch",
@@ -135,10 +143,10 @@ def _or_bit(overflow, flags, bit):
 def tile_window_gather_plain(coeffs, folds, out, flags, overflow, y0map,
                              x0map, *, f0, nf, order, wy, wx, bit, live=None,
                              sel=None, count=None):
-    """K2's plain version: one (8, 128) tile per slot.  Dense mode: every
-    tile, gated by ``live``; list mode: slots below ``count`` run tiles
-    ``sel``.  ``y0map``/``x0map`` (gy, gx) hold unpadded window starts
-    (``x0map`` None: full longitude)."""
+    """One window tier as JAX launches it: one (8, 128) tile per slot.
+    Dense mode: every tile, gated by ``live``; list mode: slots below
+    ``count`` run tiles ``sel``.  ``y0map``/``x0map`` (gy, gx) hold unpadded
+    window starts (``x0map`` None: full longitude)."""
     _, ny_t, nx_t = folds.shape
     gy, gx = ny_t // TILE_R, nx_t // TILE_C
     dev = folds.device
@@ -163,7 +171,8 @@ def tile_window_gather_plain(coeffs, folds, out, flags, overflow, y0map,
 
 def sub_window_gather_plain(coeffs, folds, out, flags, overflow, y0map, x0q,
                             live, *, f0, nf, order, wy, bit):
-    """K3's plain version: every (tile, quarter), gated by ``live``; each
+    """Tier A-sub as JAX launches it: every (tile, quarter), gated by
+    ``live``; each
     32-column quarter against its own (wy, 128) window at ``x0q``
     (gy, gx, 4), anchored at the quarter's first fold."""
     _, ny_t, nx_t = folds.shape
@@ -398,32 +407,25 @@ class Launch(NamedTuple):
     run: Callable
 
 
-def kernel_functions(kernel: str, shared=None) -> dict:
-    """The functions of a kernel choice, by kernel name.  ``shared``
-    (``cuda_window.shared_tensors``, ``"cuda"`` only) is handed to every
-    spline launch, which then skips the checks it vouches for."""
+def kernel_functions(kernel: str) -> dict:
+    """The functions of a kernel choice, by kernel name."""
     if kernel == "torch":
         return {"tier_window_gather": tier_window_gather_plain,
-                "tile_window_gather": tile_window_gather_plain,
-                "sub_window_gather": sub_window_gather_plain,
                 "pole_ladder_gather": pole_ladder_gather_plain}
     if kernel == "cuda":
         from . import cuda_window as C
-        tile, sub = C.tile_window_gather, C.sub_window_gather
-        if shared is not None:
-            tile, sub = partial(tile, shared=shared), partial(sub,
-                                                              shared=shared)
         return {"tier_window_gather": C.tier_window_gather,
-                "tile_window_gather": tile, "sub_window_gather": sub,
                 "pole_ladder_gather": C.pole_ladder_gather}
     raise ValueError(f"kernel={kernel!r}: expected 'cuda' or 'torch'")
 
 
 def spline_launches(rt, coeffs, *, f0, nf, order, wy) -> list[Launch]:
-    """The spline tiers' launches for routing ``rt`` (``route_tiles``), in
-    order: tier A (K2 dense, bit 2), tier A-sub (K3, bit 2), then one K2
-    list launch per ladder tier t (bit 5+t).  Each writes its tiles into
-    an (nf, gy*8, gx*128) output."""
+    """The spline tiers as JAX launches them, for routing ``rt``
+    (``route_tiles``), in order: tier A (``tile_window_gather_plain``,
+    dense, bit 2), tier A-sub (``sub_window_gather_plain``, bit 2), then
+    one list launch per ladder tier t (bit 5+t).  Each writes its tiles
+    into an (nf, gy*8, gx*128) output.  The reference that
+    ``tier_window_gather_plain`` is tested against."""
     kw = dict(f0=f0, nf=nf, order=order)
     n_t = rt.gy * rt.gx
     out = [Launch("tile_window_gather", "dense", n_t,
@@ -500,9 +502,9 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
 
     ``raw``/``coeffs``: (..., ny, nx) raw and prefiltered stacks whose
     leading axes flatten to the field index.  ``px``/``py``: (ny, nx)
-    positions of the whole grid.  ``kernel``: ``"cuda"`` (K2, K3 and the
-    pole ladder) or ``"torch"`` (their plain versions).  ``wy``: tier A's
-    window height.
+    positions of the whole grid.  ``kernel``: ``"cuda"``
+    (``tier_window_gather`` and the pole ladder) or ``"torch"`` (their
+    plain versions).  ``wy``: tier A's window height.
     ``retry_tiles=0`` turns off tier A-sub and the ladder (unfit tiles
     clamp and flag).  ``ladder``: (wy, wx or None, capacity) escalation
     tiers, default ``tiles.DEFAULT_LADDER``.  ``pole_ladder``: the pole

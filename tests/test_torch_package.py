@@ -155,8 +155,8 @@ def test_build_names_library_by_source_hash():
     assert [p.name for p in _build._headers()] == ["gather_math.cuh"]
     assert set(_build.SIGNATURES) == {
         f"{k}_{t}" for k in ("spline_gather", "settls_step",
-                             "tile_window_gather", "sub_window_gather",
-                             "pole_ladder_gather", "empty_launch")
+                             "tier_window_gather", "pole_ladder_gather",
+                             "empty_launch")
         for t in ("f32", "f64")}
 
 

@@ -257,3 +257,45 @@ def test_convert_round_trip():
     want = ftle_pipeline(u, v, DT, grid, settls_order=SETTLS_ORDER,
                          device="cpu")
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13)
+
+
+@pytest.mark.parametrize("truncate", [2.0, 4.0])
+def test_gaussian_filter_truncate_matches_jax_and_scipy(truncate):
+    """``gaussian_filter(truncate=)`` against the JAX package's and
+    scipy's (mode='reflect'), float64, within 1e-13 (the same taps, summed
+    in tap order)."""
+    from scipy import ndimage
+
+    from lagrangiancoherence_tpu.ops import filters as JFL
+    from lagrangiancoherence_tpu_torch.ops import filters as TFL
+    rng = np.random.RandomState(4)
+    a = rng.randn(3, 21, 34)
+    sigma = 1.7
+    taps = TFL.gaussian_kernel1d(sigma, truncate)
+    np.testing.assert_array_equal(taps, JFL.gaussian_kernel1d(sigma, truncate))
+    assert taps.size == 2 * int(truncate * sigma + 0.5) + 1
+    got = TFL.gaussian_filter(torch.tensor(a), sigma, truncate=truncate)
+    want = np.asarray(JFL.gaussian_filter(jnp.asarray(a), sigma,
+                                          truncate=truncate))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
+    ref = np.stack([ndimage.gaussian_filter(x, sigma, mode="reflect",
+                                            truncate=truncate) for x in a])
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-13)
+    if truncate == 4.0:
+        assert torch.equal(got, TFL.gaussian_filter(torch.tensor(a), sigma))
+
+
+@pytest.mark.parametrize("name", ["global_half_degree_grid",
+                                  "global_quarter_degree_grid"])
+def test_global_grids_match_jax(name):
+    import lagrangiancoherence_tpu.grid as JG
+    import lagrangiancoherence_tpu_torch.grid as TG
+    got, want = getattr(TG, name)(), getattr(JG, name)()
+    np.testing.assert_array_equal(got.lats, want.lats)
+    np.testing.assert_array_equal(got.lons, want.lons)
+    assert got.cyclic_x == want.cyclic_x and got.shape == want.shape
+    for a, b in zip(got.mesh_xy, want.mesh_xy):
+        np.testing.assert_array_equal(a, b)
+    assert (got.x_min, got.x_max, got.y_min, got.y_max) == \
+        (want.x_min, want.x_max, want.y_min, want.y_max)
+    assert name in TG.__all__

@@ -235,7 +235,8 @@ def test_nothing_launches_on_cpu_tensors():
         cuda_window.empty_launch(raw, pack, out, overflow, f0=0, nf=2,
                                  ladder=P.POLE_LADDER, bit=4)
     with pytest.raises(ValueError, match="CUDA device"):
-        cuda_window.shared_tensors(raw, raw, out, overflow)
+        cuda_window._check("tier_window_gather", (raw, raw, out),
+                           (overflow,))
     assert cuda_window.LAUNCHES == before
 
 

@@ -24,7 +24,7 @@ from lagrangiancoherence_tpu.models import settls as JS
 from lagrangiancoherence_tpu.models.pipeline import \
     ftle_pipeline as jax_ftle_pipeline
 from lagrangiancoherence_tpu.testing import flows
-from lagrangiancoherence_tpu_torch import FTLEPipeline
+from lagrangiancoherence_tpu_torch import FTLEPipeline, ftle_pipeline
 from lagrangiancoherence_tpu_torch.grid import Grid
 from lagrangiancoherence_tpu_torch.models import settls as TS
 from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_window
@@ -169,3 +169,44 @@ def test_pipeline_blockspec_matches_jax():
     assert np.array_equal(np.isnan(got), np.isnan(want))
     scale = np.nanmax(np.abs(want))
     assert np.nanmax(np.abs(got - want)) <= FTLE_RTOL * scale
+
+
+@lru_cache(maxsize=None)
+def _jax_whirl_ftle():
+    u, v, lats, lons = _polar_whirl()
+    return np.asarray(jax_ftle_pipeline(
+        jnp.asarray(u), jnp.asarray(v), DT,
+        JaxGrid(lats=lats, lons=lons, cyclic_x=True), settls_order=1,
+        rebin=False))
+
+
+@pytest.mark.parametrize("rebin", ["sort", False])
+def test_pipeline_rebin_matches_jax(rebin):
+    """``ftle_pipeline(engine="blockspec", rebin=)`` on the polar whirl,
+    whose polar bands are sort-binned with ``rebin="sort"`` and keep the
+    grid layout with ``rebin=False``, against JAX's ``ftle_pipeline``
+    (``rebin=False``, the XLA scan); ``FTLEPipeline`` takes it too.  The
+    rows whose stencil reads an exact-pole home row (0-2 and the last 3) are
+    left out of the bound, as in tests/test_torch_pipeline.py."""
+    u, v, lats, lons = _polar_whirl()
+    grid = Grid(lats=lats, lons=lons, cyclic_x=True)
+    want = _jax_whirl_ftle()
+    got, flag = ftle_pipeline(u, v, DT, grid, settls_order=1,
+                              engine="blockspec", rebin=rebin,
+                              return_overflow=True, device="cpu")
+    model = FTLEPipeline(grid, settls_order=1, engine="blockspec",
+                         rebin=rebin, device="cpu")
+    assert int(flag) == 0 and model.rebin == rebin
+    assert torch.equal(model(u, v, DT), got)
+    got, want = got.numpy()[3:-3], want[3:-3]
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    assert np.abs(got - want).max() <= FTLE_RTOL * np.abs(want).max()
+
+
+def test_pipeline_rebin_is_checked():
+    u, v, lats, lons = _polar_whirl()
+    grid = Grid(lats=lats, lons=lons, cyclic_x=True)
+    with pytest.raises(ValueError, match="rebin="):
+        ftle_pipeline(u, v, DT, grid, rebin="auto", device="cpu")
+    with pytest.raises(ValueError, match="rebin="):
+        FTLEPipeline(grid, rebin=True, device="cpu")

@@ -29,8 +29,8 @@ from lagrangiancoherence_tpu_torch.ops import cuda_window, pole as P
 from lagrangiancoherence_tpu_torch.ops.interp import (interp_at_parcels_multi,
                                                       prefilter)
 from lagrangiancoherence_tpu_torch.ops.tiles import route_tiles
-from lagrangiancoherence_tpu_torch.ops.window_interp import \
-    windowed_interp_multi
+from lagrangiancoherence_tpu_torch.ops.window_interp import (
+    tile_window_gather_plain, windowed_interp_multi)
 
 torch.set_num_threads(1)
 
@@ -216,8 +216,7 @@ def test_pole_residue_raises_bit4():
 
 def test_list_mode_dead_slots_write_nothing():
     """Slots at or past the count write only their flag, 0, and leave the
-    output as it was; the CPU wrapper takes the plain version and counts
-    no launch."""
+    output as it was; nothing is launched."""
     f = torch.tensor(_case("smooth", 2, 3)[0])
     folds = torch.zeros((2, 80, 256), dtype=torch.float64)
     before = torch.full((2, 80, 256), 7.0, dtype=torch.float64)
@@ -225,7 +224,7 @@ def test_list_mode_dead_slots_write_nothing():
     flags = torch.full((4,), -1, dtype=torch.int32)
     overflow = torch.zeros((1,), dtype=torch.int32)
     n = dict(cuda_window.LAUNCHES)
-    cuda_window.tile_window_gather(
+    tile_window_gather_plain(
         prefilter(f), folds, buf, flags, overflow,
         torch.zeros((10, 2), dtype=torch.int32),
         torch.zeros((10, 2), dtype=torch.int32), f0=0, nf=2, order=3, wy=32,
