@@ -32,14 +32,24 @@ workflow (LagrangianCoherence LCS/area_of_influence.py, as
 ``examples/area_of_influence.py`` runs it) at ERA5's 0.25 degrees: ``LCS``
 with a 3-hourly resample, ``threshold_local``, the Hessian ridges,
 ``skeletonize``, ``filter_ridges`` and ``find_area``, each held against the
-same call in float64 on the CPU.  Each phase prints its results; the line
+same call in float64 on the CPU.  Phase 9 runs ``ftle_series`` over a
+36-level record on the flagship grid (4 windows, each identical to
+``ftle_pipeline`` on its slice, and again through a ``batch_mesh`` of the
+card twice); phase 10 the latitude-block pipeline's
+``parcel_propagation_sharded`` (1 and 4 blocks, and 2x2 with longitude
+blocks) and ``ftle_sharded`` (4 blocks, with and without ``sigma``) on a
+mesh of the card repeated, each identical to the whole-grid run.  Phase 3c
+also holds ``settls_step`` on blocks with their home rows against its plain
+version and the whole-grid launch's rows, and phase 6 times the step as 4
+blocks.  Each phase prints its results; the line
 before the last is the kernel record ``{"kernels": [{"name", "route",
 "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
 "bound_ms", "bound_by", "library_ms", "device_us_per_launch",
 "empty_launch_us"}]}`` (one entry per TPU kernel replaced; times: medians of
 CUDA-event trials; ``empty_launch_us``: an empty launch through the pole
 ladder's wrapper path in the same run;
-``settls_step``'s launches summed over phases 4, 8 and 8b, K1's from the
+``settls_step``'s launches summed over phases 4, 8, 8b, 9 and 10, K1's
+from the
 per-group loop of phase 4, the routed gather's (its two kernels) and the
 ladder's from phase 4b, each counted from 0)
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -108,6 +118,7 @@ CLAMPED_POLE_LADDER = (8, 8, 8)     # the last level clamps: bit 4
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TILE = 8 * 128           # parcels per window tile and per pole slot
+SERIES_LEVELS = 36       # phase 9's record: 4 windows of NT at stride 1
 
 
 # ---------------------------------------------------------------------------
@@ -525,20 +536,26 @@ def k1_loop_field(u, v, grid, state, dt, stages=None):
     return norm
 
 
-def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold):
+def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold,
+                      block_cases):
     """Phase 3c: ``settls_step`` against ``settls_step_torch`` on the card,
-    one flagship step per case, float32 and float64; then the fold-boundary
-    grid, cyclic and not.  ``cases``: (label, px, py numpy, step, order);
-    ``fold``: (lats, lons, field).  Returns the largest max |kernel -
-    plain| in float32 (0.0: identical)."""
+    one flagship step per case, float32 and float64; then blocks of the
+    flagship grid with their home rows (``block_cases``: (label, px, py
+    numpy) at t = 0), each also against the same rows of the whole-grid
+    launch; then the fold-boundary grid, cyclic and not.  ``cases``:
+    (label, px, py numpy, step, order); ``fold``: (lats, lons, field).
+    Returns the largest max |kernel - plain| in float32 (0.0:
+    identical)."""
     import torch
     from lagrangiancoherence_tpu_torch import Grid
     from lagrangiancoherence_tpu_torch.models.settls import grid_state
     from lagrangiancoherence_tpu_torch.ops.cuda_settls import (
         interleave, settls_step, settls_step_torch)
     from lagrangiancoherence_tpu_torch.ops.interp import prefilter
+    from lagrangiancoherence_tpu_torch.parallel.pipeline import block_layout
+    ny, nx = grid.shape
     log(f"== phase 3c: settls_step vs settls_step_torch on the card, bit "
-        f"for bit [{card}]")
+        f"for bit, whole grid and blocks with home rows [{card}]")
     probe = np.array([-540.5, 2.0 ** 27, -2.0 ** 27, -180.0, 179.999,
                       -1e-30, 359.5, -359.5, 540.0, np.nan])
     for dtype, npt in ((torch.float32, np.float32),
@@ -592,6 +609,40 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold):
                 compare(label, name, want, settls_step(
                     u, v, CI, px, py, state["conv_x"], dt, t, **kw))
             del W, CW, CI
+        # blocks of a 4-block latitude mesh (181 rows each, the last with 3
+        # reflected pad rows), an interior band and an x-block
+        state = grid_state(grid, ORDER, dtype=dtype, device=dev)
+        W, CW, CI = stacks(u, v, ORDER, state)
+        kw = step_kw(grid)
+        home = torch.tensor(block_layout(grid, 4)["home_idx"],
+                            dtype=torch.int32, device=dev)
+        rows = home.numel() // 4
+        blocks = [(f"south pole-home rows 0-{rows - 1}", 0, rows, 0, nx),
+                  (f"interior rows {ny // 3}-{2 * ny // 3 - 1}", ny // 3,
+                   2 * ny // 3, 0, nx),
+                  (f"last of 4, rows {3 * rows}-{ny - 1} and "
+                   f"{4 * rows - ny} reflected", 3 * rows, 4 * rows, 0, nx),
+                  (f"x-block rows 0-{rows - 1}, columns {nx // 2}-{nx - 1}",
+                   0, rows, nx // 2, nx)]
+        for label, cx, cy in block_cases:
+            px = torch.tensor(cx, dtype=dtype, device=dev)
+            py = torch.tensor(cy, dtype=dtype, device=dev)
+            whole = settls_step(u, v, CI, px, py, state["conv_x"], dt, 0,
+                                **kw)
+            for bl, r0, r1, c0, c1 in blocks:
+                hr = home[r0:r1]
+                idx = hr.long()
+                bx = px[idx][:, c0:c1].contiguous()
+                by = py[idx][:, c0:c1].contiguous()
+                cxb = state["conv_x"][idx]
+                got = settls_step(u, v, CI, bx, by, cxb, dt, 0, home_rows=hr,
+                                  **kw)
+                compare(f"{label}, block {bl}", name, settls_step_torch(
+                    W, CW, bx, by, cxb, dt, 0, home_rows=hr, **kw), got)
+                compare(f"{label}, block {bl} vs the whole-grid launch's "
+                        f"rows", name, tuple(w[idx][:, c0:c1] for w in whole),
+                        got)
+        del W, CW, CI
         lats, lons, f = fold
         fu = torch.tensor(f, dtype=dtype, device=dev)
         uf = torch.stack([fu, 0.8 * fu])
@@ -1147,6 +1198,182 @@ def phase_area(dev, card, check, sync):
 # Phases
 # ---------------------------------------------------------------------------
 
+def series_winds(grid, nt=SERIES_LEVELS):
+    """Phase 9's record: ``bench_winds`` over ``nt`` six-hourly levels as
+    host ``Field``s, and the same winds in float32 numpy."""
+    from lagrangiancoherence_tpu_torch import Field
+    u, v = bench_winds(grid.lats, grid.lons, nt)
+    times = np.datetime64("2020-01-01", "ns") \
+        + np.arange(nt) * np.timedelta64(6, "h")
+    coords = {"time": times, "latitude": grid.lats, "longitude": grid.lons}
+    return (Field(u, DIMS3, coords, name="u"),
+            Field(v, DIMS3, coords, name="v"), u.astype(np.float32),
+            v.astype(np.float32), times)
+
+
+def event_call_ms(fn, trials=REPS):
+    """CUDA-event milliseconds of single calls of ``fn`` (each ending on the
+    host), after a warm-up call: one value per trial."""
+    import torch
+    fn()
+    out = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def phase_series(dev, card, check, grid):
+    """Phase 9: ``ftle_series`` on the flagship grid (a ``SERIES_LEVELS``
+    level record, window ``NT``, stride 1), each window against
+    ``ftle_pipeline`` on the same slice, and through a ``batch_mesh`` of the
+    card twice.  Returns its ``settls_step`` launches."""
+    import torch
+    from lagrangiancoherence_tpu_torch import ftle_pipeline, ftle_series
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
+    from lagrangiancoherence_tpu_torch.parallel.mesh import batch_mesh
+    from lagrangiancoherence_tpu_torch.runners import _prep_record, _upload
+    ny, nx = grid.shape
+    U, V, u32, v32, times = series_winds(grid)
+    starts = list(range(SERIES_LEVELS - NT + 1))
+    log(f"== phase 9: ftle_series, {nx}x{ny}, {SERIES_LEVELS} levels, "
+        f"window {NT}, stride 1 ({len(starts)} windows), SETTLS-"
+        f"{SETTLS_ORDER}, f32, engine='auto' [{card}]; ftle_series_to_files "
+        f"is not driven here: this machine has no h5py (the CPU tests hold "
+        f"its files and its skip-before-compute contract)")
+    kw = dict(window=NT, stride=1, settls_order=SETTLS_ORDER,
+              interp_order=ORDER)
+    torch.cuda.synchronize()
+    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+    series = ftle_series(U, V, DT, device=dev, **kw)
+    torch.cuda.synchronize()
+    launches, k1 = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
+    expected = (NT - 1) * len(starts)
+    check(launches == expected and k1 == 0, f"series: settls_step launches "
+          f"{launches} == {expected}, K1 launches {k1} == 0")
+    ud = torch.tensor(u32, device=dev)
+    vd = torch.tensor(v32, device=dev)
+    for i, s in enumerate(starts):
+        want = ftle_pipeline(ud[s:s + NT], vd[s:s + NT], DT, grid,
+                             settls_order=SETTLS_ORDER,
+                             interp_order=ORDER).cpu()
+        same, err, where = same_values(torch.from_numpy(series.data[i]),
+                                       want)
+        finite = bool(np.isfinite(series.data[i][2:-2]).all())
+        check(same and finite and series.coords["time"][i] == times[s],
+              f"series window {i} (levels {s}-{s + NT - 1}): identical to "
+              f"ftle_pipeline on the slice={same}"
+              + ("" if same else f" (max|d|={err:.3e} at {where})")
+              + f", rows [2:-2] finite={finite}, stamped with its first "
+              f"time")
+    mesh = batch_mesh(devices=[dev] * 2)
+    cuda_settls.LAUNCHES = 0
+    meshed = ftle_series(U, V, DT, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    launches += cuda_settls.LAUNCHES
+    same = np.array_equal(meshed.data, series.data, equal_nan=True)
+    check(same and cuda_settls.LAUNCHES == expected,
+          f"series through batch_mesh(devices=[card] * 2): identical="
+          f"{same}, settls_step launches {cuda_settls.LAUNCHES} == "
+          f"{expected}")
+
+    series_ms = event_call_ms(lambda: ftle_series(U, V, DT, device=dev, **kw))
+    one_ms = event_call_ms(lambda: ftle_pipeline(
+        ud[:NT], vd[:NT], DT, grid, settls_order=SETTLS_ORDER,
+        interp_order=ORDER).cpu())
+
+    def prep_upload():
+        ur, vr = _prep_record(U, V, "time")[:2]
+        return _upload(ur, vr, None, dev)[0].sum().item()
+    prep_ms = event_call_ms(prep_upload)
+    med, lo, hi = spread(series_ms)
+    per = [t / len(starts) for t in (med, lo, hi)]
+    log(f"series: {med:.3f} ms [{lo:.3f}, {hi:.3f}] a series of "
+        f"{len(starts)} windows, {per[0]:.3f} ms [{per[1]:.3f}, "
+        f"{per[2]:.3f}] a window; of a series, host prep and upload of the "
+        f"record {spread(prep_ms)[0]:.3f} ms; one-call ftle_pipeline "
+        f"(winds on the card, field to the host) "
+        f"{spread(one_ms)[0]:.3f} ms [{min(one_ms):.3f}, {max(one_ms):.3f}] "
+        f"(CUDA events, median [min, max] of {REPS} after a warm-up) "
+        f"[{card}]")
+    return launches
+
+
+def phase_blocks(dev, card, check, grid, u32, v32):
+    """Phase 10: the latitude-block pipeline on the card: ``parcel_mesh`` of
+    the card repeated n times runs n blocks in sequence.  Departure points
+    against the whole-grid ``parcel_propagation_core``, FTLE against
+    ``ftle_pipeline``.  Returns its ``settls_step`` launches."""
+    import torch
+    from lagrangiancoherence_tpu_torch import (ftle_pipeline, ftle_sharded,
+                                              parcel_propagation_sharded)
+    from lagrangiancoherence_tpu_torch.models.settls import \
+        parcel_propagation_core
+    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
+    from lagrangiancoherence_tpu_torch.parallel.mesh import parcel_mesh
+    ny, nx = grid.shape
+    log(f"== phase 10: parcel_propagation_sharded and ftle_sharded, "
+        f"{nx}x{ny}, T={NT}, SETTLS-{SETTLS_ORDER}, f32, blocks of the card "
+        f"[{card}]")
+    kw = dict(settls_order=SETTLS_ORDER, interp_order=ORDER)
+    wx, wy = parcel_propagation_core(u32, v32, DT, grid, **kw)
+    total = 0
+
+    def counted(fn):
+        nonlocal total
+        torch.cuda.synchronize()
+        cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        total += cuda_settls.LAUNCHES
+        return out, cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
+
+    meshes = {"n=1": (parcel_mesh(devices=[dev]), 1),
+              "n=4": (parcel_mesh(devices=[dev] * 4), 4),
+              "2x2 (y, x)": (parcel_mesh(devices=[dev] * 4, x_parallel=2),
+                             4)}
+    for label, (mesh, n) in meshes.items():
+        (px, py, ovf), launches, k1 = counted(
+            lambda: parcel_propagation_sharded(u32, v32, DT, grid, mesh,
+                                               return_overflow=True, **kw))
+        same = same_values(px, wx)[0] and same_values(py, wy)[0]
+        check(same and launches == (NT - 1) * n and k1 == 0
+              and int(ovf) == 0,
+              f"parcel_propagation_sharded {label}: departure points "
+              f"identical to the whole grid's={same}; settls_step launches "
+              f"{launches} == {(NT - 1) * n}, K1 {k1} == 0, overflow "
+              f"{int(ovf)} == 0")
+    mesh4 = meshes["n=4"][0]
+    for sigma in (None, 1.5):
+        want = ftle_pipeline(u32, v32, DT, grid, sigma=sigma, **kw)
+        (out, ovf), launches, k1 = counted(
+            lambda: ftle_sharded(u32, v32, DT, grid, mesh4, sigma=sigma,
+                                 return_overflow=True, **kw))
+        same, err, where = same_values(out, want)
+        check(same and launches == (NT - 1) * 4 and k1 == 0
+              and int(ovf) == 0,
+              f"ftle_sharded n=4 sigma={sigma}: identical to ftle_pipeline="
+              f"{same}" + ("" if same else f" (max|d|={err:.3e} at {where})")
+              + f"; settls_step launches {launches} == {(NT - 1) * 4}, K1 "
+              f"{k1}, overflow {int(ovf)}")
+    times = {label: event_call_ms(lambda: ftle_sharded(
+        u32, v32, DT, grid, meshes[label][0], **kw).cpu())
+        for label in ("n=1", "n=4")}
+    times["ftle_pipeline"] = event_call_ms(lambda: ftle_pipeline(
+        u32, v32, DT, grid, **kw).cpu())
+    log("ms a field (CUDA events, median [min, max] of "
+        f"{REPS} after a warm-up, field to the host): " + "; ".join(
+            f"{k} {spread(t)[0]:.3f} [{min(t):.3f}, {max(t):.3f}]"
+            for k, t in times.items()) + f" [{card}]")
+    return total
+
+
 def log(msg=""):
     print(msg, flush=True)
 
@@ -1321,7 +1548,9 @@ def main() -> int:
          ("longitudes across +-540 deg, latitudes past the poles", pxc, pyc,
           0, ORDER),
          ("flagship order 1", pxn, pyn, 0, 1)],
-        (fl_lats, fl_lons, fu))
+        (fl_lats, fl_lons, fu),
+        [("flagship", pxn, pyn),
+         ("pole rows at +-2**27 deg, NaN positions", pxe, pye)])
     if "--quick" in sys.argv[1:]:
         log(f"chip_smoke --quick: {len(failures)} check(s) failed")
         return 1 if failures else 0
@@ -1632,6 +1861,36 @@ def main() -> int:
         lambda: cuda_settls.settls_step(u32, v32, CI, px, py, state["conv_x"],
                                         dt, 0, out=(ox, oy), **skw), 50,
         "settls_step_kernel")}
+    # the same step as 4 latitude blocks of 181 rows (the last with 3
+    # reflected pad rows), one launch each: the step of phase 10's n = 4
+    from lagrangiancoherence_tpu_torch.parallel.pipeline import block_layout
+    home4 = torch.tensor(block_layout(grid, 4)["home_idx"],
+                         dtype=torch.int32, device=dev).split(
+                             -(-ny // 4))
+    blocks4 = [(hr, px[hr.long()], py[hr.long()], state["conv_x"][hr.long()],
+                torch.empty((hr.numel(), nx), device=dev),
+                torch.empty((hr.numel(), nx), device=dev)) for hr in home4]
+
+    def four_blocks():
+        for hr, bx, by, cxb, bo, bp in blocks4:
+            cuda_settls.settls_step(u32, v32, CI, bx, by, cxb, dt, 0,
+                                    home_rows=hr, out=(bo, bp), **skw)
+    # and the whole grid in one launch that reads its rows' home rows:
+    # the home-row load without the split
+    home_all = torch.arange(ny, dtype=torch.int32, device=dev)
+
+    def whole_homes():
+        cuda_settls.settls_step(u32, v32, CI, px, py, state["conv_x"], dt, 0,
+                                home_rows=home_all, out=(ox, oy), **skw)
+    for label, fn in ((f"as 4 blocks of {-(-ny // 4)} rows", four_blocks),
+                      ("on the whole grid with home_rows", whole_homes)):
+        t_ms = event_ms(fn, 50)
+        us, n = device_us(fn, 50, "settls_step_kernel")
+        med, lo, hi = spread(t_ms)
+        log(f"  settls_step {label}: {med:.4f} ms [{lo:.4f}, {hi:.4f}] a "
+            f"step (median [min, max] of {TRIALS} trials of 50); device "
+            f"{us:.2f} us a launch x {n:g} = {us * n:.2f} us [{card}]")
+    del blocks4
     plain_times = {"settls_step": event_ms(lambda: settls_step_torch(
         W, CW, px, py, state["conv_x"], dt, 0, **skw), 3)}
     times["K1 loop step"] = event_ms(lambda: settls_step_torch(
@@ -1855,6 +2114,10 @@ def main() -> int:
     launches += phase_facade(dev, card, check, torch.cuda.synchronize, u64,
                              v64, grid)
     launches += phase_area(dev, card, check, torch.cuda.synchronize)
+
+    # -- 9. the series runner; 10. the latitude-block pipeline ----------------
+    launches += phase_series(dev, card, check, grid)
+    launches += phase_blocks(dev, card, check, grid, u32, v32)
 
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")

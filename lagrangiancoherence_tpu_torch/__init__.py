@@ -23,7 +23,18 @@ light):
   (models.ridge_filter) and ``find_area`` (models.area)
 - ``ftle_pipeline`` and ``FTLEPipeline`` (models.pipeline)
 - ``parcel_propagation_core`` (models.settls)
+- ``ftle_sharded``, ``parcel_propagation_sharded`` and ``ftle_batch``
+  (parallel.pipeline): the latitude-block and batch pipelines over a
+  ``parallel.mesh`` mesh of devices, run as a loop over its blocks in one
+  process (a device may repeat: one card runs N blocks in sequence)
+- ``ftle_series`` and ``ftle_series_to_files`` (runners): one FTLE field a
+  window of a long wind record, uploaded once, through one
+  ``FTLEPipeline``
 - ``Grid`` (grid)
+
+Beside them, ``utils/profiling.py`` (``trace``, ``StageTimer``,
+``device_memory_stats``) and ``utils/debug.py`` (``checked_ftle``,
+``nan_debug``).
 """
 from __future__ import annotations
 
@@ -43,6 +54,12 @@ _EXPORTS = {
     "FTLEPipeline": "lagrangiancoherence_tpu_torch.models.pipeline",
     "parcel_propagation_core": "lagrangiancoherence_tpu_torch.models.settls",
     "Grid": "lagrangiancoherence_tpu_torch.grid",
+    "ftle_sharded": "lagrangiancoherence_tpu_torch.parallel.pipeline",
+    "ftle_batch": "lagrangiancoherence_tpu_torch.parallel.pipeline",
+    "parcel_propagation_sharded":
+        "lagrangiancoherence_tpu_torch.parallel.pipeline",
+    "ftle_series": "lagrangiancoherence_tpu_torch.runners",
+    "ftle_series_to_files": "lagrangiancoherence_tpu_torch.runners",
 }
 
 __all__ = sorted(_EXPORTS) + ["__version__"]

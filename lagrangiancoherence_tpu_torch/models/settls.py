@@ -207,27 +207,38 @@ def _unsort_bands(arrs, perm, bands):
 
 def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
                 settls_order: int, interp_order: int, return_traj: bool,
-                kernel: str = "torch", engine: str = "auto",
+                row_offset=0, home_rows=None, kernel: str = "torch",
+                engine: str = "auto", debug_per_step: bool = False,
                 rebin="sort", progress: bool = False):
-    """The SETTLS time loop over the parcel grid.
+    """The SETTLS time loop over a block of parcels.
 
     ``u``/``v``: (T, ny, nx) winds; ``cu``/``cv``: their prefiltered
-    coefficients.  ``px0``/``py0``: (ny, nx) initial positions (home rows =
-    grid rows).  ``dt``: 0-dim tensor.  ``conv_x``: (ny, 1) per-home-latitude
-    factor.  ``kernel``: ``"cuda"`` (the hand-written kernels) or
-    ``"torch"`` (their plain versions).  ``engine``: ``"auto"`` /
-    ``"dma-all"`` (the direct gather: one fused step per launch,
-    ``ops/cuda_settls.py``) or ``"blockspec"`` (the windowed gather); see
-    ``resolve_engine``.  ``rebin`` applies to
-    ``"blockspec"``: ``"sort"`` sort-bins the polar bands, False keeps the
-    grid layout.  ``progress`` logs one ``Propagating time index`` line per
-    step from the host loop (the reference's per-step print,
-    LagrangianCoherence LCS/trajectory.py:81).  Nothing in the loop waits
-    for the device.
+    coefficients.  ``px0``/``py0``: (rows, cols) initial positions: the
+    whole grid, or a block of it whose home rows start at global row
+    ``row_offset`` (a latitude block) or are given by ``home_rows`` (an
+    integer tensor of ``rows`` values, as the latitude-block pipeline passes
+    for its reflected pad rows).  An x-block (``cols < nx``) leaves the
+    gather's geometry global: the winds are always the whole grid.
+    ``dt``: 0-dim tensor.  ``conv_x``: (rows, 1) per-home-latitude factor.
+    ``kernel``: ``"cuda"`` (the hand-written kernels) or ``"torch"`` (their
+    plain versions).  ``engine``: ``"auto"`` / ``"dma-all"`` (the direct
+    gather: one fused step per launch, ``ops/cuda_settls.py``) or
+    ``"blockspec"`` (the windowed gather, whole grids only); see
+    ``resolve_engine``.  The direct route's pole test keys on the home row
+    itself, so it needs none of JAX's ``pole_seed`` (the replicated pole
+    block of its windowed route).  ``rebin`` applies to ``"blockspec"``:
+    ``"sort"`` sort-bins the polar bands, False keeps the grid layout.
+    ``progress`` logs one ``Propagating time index`` line per step from the
+    host loop (the reference's per-step print, LagrangianCoherence
+    LCS/trajectory.py:81).  Nothing in the loop waits for the device.
 
-    Returns ``(px, py, overflow)`` — (T, ny, nx) trajectories including
+    Returns ``(px, py, overflow)`` — (T, rows, cols) trajectories including
     the initial positions when ``return_traj`` — where ``overflow`` is the
-    int32 0-dim overflow bitmask (always 0 on the direct route).
+    int32 0-dim overflow bitmask (always 0 on the direct route).  With
+    ``debug_per_step`` and no trajectories, the third value is instead the
+    (T-1,) int32 overflow word after each step, as JAX returns it
+    (models/settls.py:671-673, 721); the windowed route then keeps the grid
+    layout, as JAX's does.
     """
     if kernel not in ("cuda", "torch"):
         raise ValueError(f"settls_scan: kernel={kernel!r} (resolve 'auto' "
@@ -236,10 +247,24 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
         raise ValueError(f"rebin={rebin!r}: expected 'sort' or False")
     engine = resolve_engine(engine)
     T, ny, nx = u.shape
+    rows, cols = px0.shape
+    if engine == "blockspec" and (home_rows is not None or row_offset
+                                  or (rows, cols) != (ny, nx)):
+        raise NotImplementedError(
+            "engine='blockspec' on a block of the grid (home_rows, "
+            "row_offset or a block shape) is not ported yet (ROADMAP.md "
+            "Queue 1 item 9c, the windowed route's block mode); use "
+            "engine='auto'")
+    if home_rows is None and row_offset:
+        home_rows = torch.arange(row_offset, row_offset + rows,
+                                 device=px0.device)
+    if home_rows is not None:
+        home_rows = home_rows.reshape(-1).to(device=px0.device,
+                                             dtype=torch.int32).contiguous()
     bounds = dict(y_min=grid.y_min, y_max=grid.y_max,
                   x_min=grid.x_min, x_max=grid.x_max)
     kw = dict(settls_order=settls_order, order=interp_order,
-              cyclic_x=grid.cyclic_x, **bounds)
+              cyclic_x=grid.cyclic_x, home_rows=home_rows, **bounds)
     if kernel == "cuda" and engine == "dma-all":
         # the fused step reads the raw winds as they are and the
         # coefficients interleaved
@@ -257,7 +282,9 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
                                   settls_order=settls_order,
                                   order=interp_order,
                                   return_traj=return_traj, kernel=kernel,
-                                  rebin=rebin, progress=progress)
+                                  rebin=rebin and not debug_per_step,
+                                  debug_per_step=debug_per_step,
+                                  progress=progress)
 
         def step(px, py, t, out):
             return settls_step_torch(W, CW, px, py, conv_x, dt, t, out=out,
@@ -267,7 +294,7 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
     # one gather group at a time; each step writes its end positions once,
     # into the next trajectory slot or a new pair (out of place)
     if return_traj:
-        traj_x = torch.empty((T, ny, nx), dtype=u.dtype, device=u.device)
+        traj_x = torch.empty((T, rows, cols), dtype=u.dtype, device=u.device)
         traj_y = torch.empty_like(traj_x)
         traj_x[0], traj_y[0] = px0, py0
     px, py = px0, py0
@@ -276,15 +303,16 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
             logger.info("Propagating time index %d/%d", t + 1, T - 1)
         out = (traj_x[t + 1], traj_y[t + 1]) if return_traj else None
         px, py = step(px, py, t, out)
-    flag = torch.zeros((), dtype=torch.int32, device=u.device)
     if return_traj:
-        return traj_x, traj_y, flag
-    return px, py, flag
+        return traj_x, traj_y, torch.zeros((), dtype=torch.int32,
+                                           device=u.device)
+    shape = (T - 1,) if debug_per_step else ()
+    return px, py, torch.zeros(shape, dtype=torch.int32, device=u.device)
 
 
 def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
                    order: int, return_traj: bool, kernel: str, rebin,
-                   progress: bool):
+                   debug_per_step: bool, progress: bool):
     """``settls_scan``'s ``engine="blockspec"`` route on the planar raw and
     coefficient stacks ``W``/``CW`` (2T, ny, nx)."""
     T, ny, nx = W.shape[0] // 2, *W.shape[1:]
@@ -329,7 +357,7 @@ def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
     perm = (torch.arange(ny * nx, dtype=torch.int32, device=device)
             .reshape(ny, nx))
     pole_geom = dict(order=order, nx=nx)
-    traj_x, traj_y = [px0], [py0]
+    traj_x, traj_y, step_flags = [px0], [py0], []
     for t in range(T - 1):
         if progress:
             logger.info("Propagating time index %d/%d", t + 1, T - 1)
@@ -367,12 +395,16 @@ def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
             px, py = (P.set_pole_rows(a, P.pole_unsort_rows(
                 b, inv_p, **pole_geom), order)
                 for a, b in zip((px, py), sets[1][:2]))
+        step_flags.append(flag)
         if return_traj:
             opx, opy = _unsort_bands((px, py), perm, bands)
             traj_x.append(opx)
             traj_y.append(opy)
     if return_traj:
         return torch.stack(traj_x), torch.stack(traj_y), flag
+    if debug_per_step:
+        flag = torch.stack(step_flags) if step_flags else \
+            zero_flag.new_zeros((0,))
     return (*_unsort_bands((px, py), perm, bands), flag)
 
 
@@ -387,7 +419,9 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
                             kernel: str = "auto", engine: str = "auto",
                             rebin="sort", return_overflow: bool = False,
                             progress: bool = False, device=None,
-                            state: dict[str, torch.Tensor] | None = None):
+                            state: dict[str, torch.Tensor] | None = None,
+                            row_offset=0, home_rows=None,
+                            debug_per_step: bool = False):
     """Integrate parcel positions through ``T-1`` SETTLS steps.
 
     Parameters
@@ -404,6 +438,9 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
         tensor, else the CUDA card (``devices.resolve_device``).
     state : ``grid_state`` tensors on that device and dtype, as
         ``FTLEPipeline`` holds them; built from ``grid`` when omitted.
+    row_offset, home_rows, debug_per_step : passed to ``settls_scan`` (the
+        parcels are the whole grid; ``home_rows`` relabels their rows, and
+        with ``debug_per_step`` the overflow is the per-step word).
 
     Returns
     -------
@@ -432,7 +469,8 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
         u, v, cu, cv, state["px0"], state["py0"], dt, state["conv_x"], grid,
         settls_order=settls_order, interp_order=interp_order,
         return_traj=return_traj, kernel=kernel, engine=engine, rebin=rebin,
-        progress=progress)
+        progress=progress, row_offset=row_offset, home_rows=home_rows,
+        debug_per_step=debug_per_step)
     if return_overflow:
         return tuple(pos) + (overflow,)
     return tuple(pos)

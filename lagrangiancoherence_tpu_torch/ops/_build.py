@@ -44,9 +44,9 @@ _LADDER_ARGTYPES = [_PTR] * 5 + [_INT] * 4 + [_LL] + [_INT] * 5 + [_PTR]
 # coeffs folds out plan fits flags scratch overflow ticket, ny nx ny_t nx_t
 # order nf f0 wy wx ypad xpad sub n_specs, specs (host ints), stream
 _TIER_ARGTYPES = [_PTR] * 9 + [_INT] * 6 + [_LL] + [_INT] * 6 + [_PTR, _PTR]
-# u v coeffs px_in py_in px_out py_out conv_x dt, ny nx t order settls_order
-# cyclic, conv_y x_min x_max y_min y_max, stream
-_STEP_ARGTYPES = ([_PTR] * 9 + [_INT, _INT, _LL] + [_INT] * 3
+# u v coeffs px_in py_in px_out py_out conv_x dt home_rows, ny nx rows cols
+# t order settls_order cyclic, conv_y x_min x_max y_min y_max, stream
+_STEP_ARGTYPES = ([_PTR] * 10 + [_INT] * 4 + [_LL] + [_INT] * 3
                   + [ctypes.c_double] * 5 + [_PTR])
 SIGNATURES = {
     **{f"spline_gather_{t}": _GATHER_ARGTYPES for t in ("f32", "f64")},

@@ -20,6 +20,15 @@
 // and writes the end position once.  Each thread reads and writes only its
 // own parcel, so the output may alias the input (an in-place step).
 //
+// The positions may be a block of the grid: `rows` x `cols` parcels, parcel
+// (row, col) at `row * cols + col`, while the winds and coefficients stay
+// the whole (ny, nx) grid (the JAX package's shard_map block, whose gathers
+// address the replicated winds globally, models/settls.py:288-303).
+// `conv_x` then holds one value per block row.  The pole-row test keys on
+// the parcel's global home row: `home_rows[row]` when given (a latitude
+// block, whose last block may hold reflected pad rows), else the block row
+// itself (the whole grid, or a block that starts at row 0).
+//
 // What bounds it: at the flagship (1440 x 721 parcels, order 3, float32)
 // a step must read the positions (8.3 MB) and the two coefficient levels
 // (16.6 MB) and write the positions (8.3 MB): 33.2 MB, 9.9 us at
@@ -74,9 +83,12 @@ struct StepParams {
   const T* py_in;
   T* px_out;          // may alias px_in
   T* py_out;          // may alias py_in
-  const T* conv_x;    // (ny,) deg/s per m/s on each home row
+  const T* conv_x;    // (rows,) deg/s per m/s on each home row
   const T* dt;        // 0-dim, on the card
-  int ny, nx, settls_order, cyclic;
+  const int* home_rows;  // (rows,) global home rows, or null: the block row
+  int ny, nx;         // the winds' grid
+  int rows, cols;     // the positions' block
+  int settls_order, cyclic;
   T conv_y, x_min, x_max, x_den, y_min, y_max, y_den;
 };
 
@@ -109,20 +121,21 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinBlocks)
 settls_step_kernel(const StepParams<T> p) {
   const int col = blockIdx.x * kTileX + threadIdx.x;
   const int row = blockIdx.y * kTileY + threadIdx.y;
-  if (col >= p.nx || row >= p.ny) return;
+  if (col >= p.cols || row >= p.rows) return;
   const int64_t plane = static_cast<int64_t>(p.ny) * p.nx;
-  const int64_t at = static_cast<int64_t>(row) * p.nx + col;
+  const int64_t at = static_cast<int64_t>(row) * p.cols + col;
   const SplitRaw<T> raw{p.u, p.v, plane};
   T x = p.px_in[at];
   T y = p.py_in[at];
   const T dt = __ldg(p.dt);
   const T cx = __ldg(p.conv_x + row);
+  const int home = p.home_rows ? __ldg(p.home_rows + row) : row;
 
   // Euler first guess (LagrangianCoherence LCS/trajectory.py:82-87)
   T w[2];
   gather_parcel<T, ORDER, 2>(raw, plane,
                              InterleavedTaps<T, 2>{p.coeffs, 2 * plane}, x, y,
-                             row, p.ny, p.nx, p.x_min, p.x_den, p.y_min,
+                             home, p.ny, p.nx, p.x_min, p.x_den, p.y_min,
                              p.y_den, w);
   const T ua = w[0], va = w[1];
   x = add_rn(x, mul_rn(mul_rn(dt, cx), ua));
@@ -139,7 +152,7 @@ settls_step_kernel(const StepParams<T> p) {
     T d[4];
     gather_parcel<T, ORDER, 4>(raw, plane,
                                InterleavedTaps<T, 4>{p.coeffs, 2 * plane}, x,
-                               y, row, p.ny, p.nx, p.x_min, p.x_den, p.y_min,
+                               y, home, p.ny, p.nx, p.x_min, p.x_den, p.y_min,
                                p.y_den, d);
     x = add_rn(x, mul_rn(kx, sub_rn(add_rn(ua, mul_rn(T(2), d[0])), d[2])));
     y = add_rn(y, mul_rn(ky, sub_rn(add_rn(va, mul_rn(T(2), d[1])), d[3])));
@@ -160,7 +173,8 @@ cudaError_t launch(const StepParams<T>& p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     carved = true;
   }
-  const dim3 grid((p.nx + kTileX - 1) / kTileX, (p.ny + kTileY - 1) / kTileY);
+  const dim3 grid((p.cols + kTileX - 1) / kTileX,
+                  (p.rows + kTileY - 1) / kTileY);
   kernel<<<grid, dim3(kTileX, kTileY), 0, stream>>>(p);
   return cudaGetLastError();
 }
@@ -168,8 +182,9 @@ cudaError_t launch(const StepParams<T>& p, cudaStream_t stream) {
 template <typename T>
 int dispatch(const void* u, const void* v, const void* coeffs,
              const void* px_in, const void* py_in, void* px_out,
-             void* py_out, const void* conv_x, const void* dt, int ny,
-             int nx, long long t, int order, int settls_order, int cyclic,
+             void* py_out, const void* conv_x, const void* dt,
+             const void* home_rows, int ny, int nx, int rows, int cols,
+             long long t, int order, int settls_order, int cyclic,
              double conv_y, double x_min, double x_max, double y_min,
              double y_max, void* stream) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
@@ -183,8 +198,11 @@ int dispatch(const void* u, const void* v, const void* coeffs,
   p.py_out = static_cast<T*>(py_out);
   p.conv_x = static_cast<const T*>(conv_x);
   p.dt = static_cast<const T*>(dt);
+  p.home_rows = static_cast<const int*>(home_rows);
   p.ny = ny;
   p.nx = nx;
+  p.rows = rows;
+  p.cols = cols;
   p.settls_order = settls_order;
   p.cyclic = cyclic;
   // each bound cast from the double the caller holds, as torch casts a
@@ -207,29 +225,35 @@ int dispatch(const void* u, const void* v, const void* coeffs,
 // C entry points, bound with ctypes by ops/cuda_settls.py.  `u` and `v` are
 // the whole (T, ny, nx) planar raw stacks and `coeffs` the whole
 // (T, ny, nx, 2) interleaved coefficient stack; step t reads levels t and
-// t+1.  Returns cudaGetLastError() after the launch (0 = launched).
+// t+1.  The positions and outputs are (rows, cols), `conv_x` and
+// `home_rows` (null for the block rows themselves) hold `rows` values.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int settls_step_f32(const void* u, const void* v,
                                const void* coeffs, const void* px_in,
                                const void* py_in, void* px_out, void* py_out,
-                               const void* conv_x, const void* dt, int ny,
-                               int nx, long long t, int order,
+                               const void* conv_x, const void* dt,
+                               const void* home_rows, int ny, int nx,
+                               int rows, int cols, long long t, int order,
                                int settls_order, int cyclic, double conv_y,
                                double x_min, double x_max, double y_min,
                                double y_max, void* stream) {
   return dispatch<float>(u, v, coeffs, px_in, py_in, px_out, py_out, conv_x,
-                         dt, ny, nx, t, order, settls_order, cyclic, conv_y,
-                         x_min, x_max, y_min, y_max, stream);
+                         dt, home_rows, ny, nx, rows, cols, t, order,
+                         settls_order, cyclic, conv_y, x_min, x_max, y_min,
+                         y_max, stream);
 }
 
 extern "C" int settls_step_f64(const void* u, const void* v,
                                const void* coeffs, const void* px_in,
                                const void* py_in, void* px_out, void* py_out,
-                               const void* conv_x, const void* dt, int ny,
-                               int nx, long long t, int order,
+                               const void* conv_x, const void* dt,
+                               const void* home_rows, int ny, int nx,
+                               int rows, int cols, long long t, int order,
                                int settls_order, int cyclic, double conv_y,
                                double x_min, double x_max, double y_min,
                                double y_max, void* stream) {
   return dispatch<double>(u, v, coeffs, px_in, py_in, px_out, py_out, conv_x,
-                          dt, ny, nx, t, order, settls_order, cyclic, conv_y,
-                          x_min, x_max, y_min, y_max, stream);
+                          dt, home_rows, ny, nx, rows, cols, t, order,
+                          settls_order, cyclic, conv_y, x_min, x_max, y_min,
+                          y_max, stream);
 }

@@ -294,38 +294,49 @@ def scale_positions(px: torch.Tensor, py: torch.Tensor, *, x_min, x_max,
     return xi, yi
 
 
-def _pole_rows(shape, order: int, ny: int, row_offset: int,
-               device) -> torch.Tensor:
-    """Boolean, broadcastable to ``shape``: the parcel's home row (axis 0
-    plus ``row_offset``) is one of the ``order`` rows nearest a pole — the
-    reference keys the pole special case on the home row, not the current
-    position."""
-    row = torch.arange(shape[0], device=device) + row_offset
-    row = row.reshape((-1,) + (1,) * (len(shape) - 1))
+def _pole_rows(shape, order: int, ny: int, row_offset: int, device,
+               home_rows=None) -> torch.Tensor:
+    """Boolean, broadcastable to ``shape``: the parcel's home row is one of
+    the ``order`` rows nearest a pole — the reference keys the pole special
+    case on the home row, not the current position.  The home row is axis 0
+    plus ``row_offset``, or ``home_rows`` (global rows, broadcastable to
+    ``shape``) when given."""
+    if home_rows is None:
+        row = torch.arange(shape[0], device=device) + row_offset
+        row = row.reshape((-1,) + (1,) * (len(shape) - 1))
+    else:
+        row = torch.as_tensor(home_rows, device=device).broadcast_to(shape)
     return (row < order) | (row >= ny - order)
 
 
 def interp_at_parcels(field: torch.Tensor, coeffs: torch.Tensor,
                       px: torch.Tensor, py: torch.Tensor, *,
                       x_min, x_max, y_min, y_max, order: int = 3,
-                      row_offset: int = 0) -> torch.Tensor:
+                      row_offset: int = 0, home_rows=None) -> torch.Tensor:
     """Full ``xr_map_coordinates(isglobal=True)`` semantics for one (ny, nx)
     field (LagrangianCoherence LCS/tools.py:11-48).  ``coeffs`` are the
-    prefiltered coefficients (equal to ``field`` for orders 0 and 1)."""
+    prefiltered coefficients (equal to ``field`` for orders 0 and 1).
+    ``px``/``py`` may be a block of parcels whose home rows are grid rows
+    ``row_offset ..``; ``home_rows`` (an integer tensor broadcastable to the
+    positions' shape, e.g. (rows, 1)) gives each parcel's global home row
+    instead, as a latitude block with reflected pad rows needs.  The grid
+    is the field's whatever the block."""
     ny, nx = field.shape
     xi, yi = scale_positions(px, py, x_min=x_min, x_max=x_max,
                              y_min=y_min, y_max=y_max, nx=nx, ny=ny)
     interior = eval_spline_wrap(coeffs, yi, xi, order=order)
     poles = eval_linear_constant(field, yi, xi)
-    return torch.where(_pole_rows(px.shape, order, ny, row_offset, px.device),
-                       poles, interior)
+    return torch.where(_pole_rows(px.shape, order, ny, row_offset, px.device,
+                                  home_rows), poles, interior)
 
 
 def interp_at_parcels_multi(fields: torch.Tensor, coeffs: torch.Tensor,
                             px: torch.Tensor, py: torch.Tensor, *,
                             x_min, x_max, y_min, y_max, order: int = 3,
-                            row_offset: int = 0) -> torch.Tensor:
-    """``interp_at_parcels`` for F stacked fields at shared positions.
+                            row_offset: int = 0,
+                            home_rows=None) -> torch.Tensor:
+    """``interp_at_parcels`` for F stacked fields at shared positions (the
+    home rows as there).
 
     ``fields``/``coeffs``: (F, ny, nx); returns (F,) + px.shape.  Taps
     accumulate in the JAX order: y taps outer, x taps inner, the weight
@@ -348,5 +359,6 @@ def interp_at_parcels_multi(fields: torch.Tensor, coeffs: torch.Tensor,
 
     poles = _bilinear_constant(fields.reshape(nf, ny * nx), yi_f, xi_f,
                                ny, nx)
-    is_pole = _pole_rows(px.shape, order, ny, row_offset, px.device)
+    is_pole = _pole_rows(px.shape, order, ny, row_offset, px.device,
+                         home_rows)
     return torch.where(is_pole[None], poles, interior)

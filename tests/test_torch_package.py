@@ -7,9 +7,10 @@
   launch counter stays 0 on the CPU path;
 * ``chip_smoke.py`` fails without a CUDA device, and its scipy oracle (it
   may not import the JAX package) agrees with the package's oracle;
-* the facade and diagnostics modules import no ``jax``, ``pandas``, ``h5py``
-  or ``xarray`` (the card's machine has no pandas and no h5py), and the
-  package exports the JAX package's facade names.
+* the facade, diagnostics, runner, block-pipeline and utility modules import
+  no ``jax``, ``pandas``, ``h5py`` or ``xarray`` (the card's machine has no
+  pandas and no h5py), and the package exports the JAX package's public
+  names.
 """
 import os
 import subprocess
@@ -64,7 +65,9 @@ print("BAD", bad)
 SLICE_MODULES = ("api", "cli", "field", "convert", "devices", "ops.sht",
                  "ops.regrid", "ops.stencil", "ops.morphology", "ops.idw",
                  "models.ridges", "models.area", "models.ridge_filter",
-                 "utils.io", "utils.logging")
+                 "utils.io", "utils.logging", "runners", "parallel.mesh",
+                 "parallel.halo", "parallel.pipeline", "utils.profiling",
+                 "utils.debug")
 
 
 def test_slice_modules_import_no_jax_pandas_h5py():
@@ -96,6 +99,10 @@ def test_exports_cover_the_facade():
     for name in facade:
         assert getattr(L, name).__module__.startswith(
             "lagrangiancoherence_tpu_torch.")
+    # every public name of the JAX package, and the port's own two
+    assert set(L.__all__) - {"FTLEPipeline", "parcel_propagation_core"} \
+        == set(J.__all__)
+    assert len(J._EXPORTS) == 16 and set(J._EXPORTS) <= set(L._EXPORTS)
 
 
 def test_cuda_kernel_refuses_cpu_tensors():

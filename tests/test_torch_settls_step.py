@@ -273,3 +273,125 @@ def test_cpu_tensors_stay_on_the_cpu():
                                         settls_order=1)
     assert {norm.device.type, px.device.type, py.device.type} == {"cpu"}
     assert cuda_settls.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# Blocks of the grid: home rows and block shapes
+# ---------------------------------------------------------------------------
+
+def _home_idx(ny, n_blocks):
+    """The latitude-block pipeline's padded rows (parallel/pipeline.py:
+    symmetric reflection past the south end)."""
+    k = np.arange(-(-ny // n_blocks) * n_blocks)
+    return np.where(k < ny, k, 2 * ny - 1 - k)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_interp_home_rows_match_jax(order):
+    """``interp_at_parcels(_multi)(home_rows=...)`` against JAX's with the
+    same home rows: a block of reflected pad rows whose pole test keys on
+    the rows they reflect, within the interp tests' 1e-12."""
+    from lagrangiancoherence_tpu.ops import interp as JI
+    from lagrangiancoherence_tpu_torch.ops import interp as TI
+    rng = np.random.RandomState(order)
+    ny, nx = 13, 36
+    lats, lons = np.linspace(-90.0, 90.0, ny), np.linspace(-180.0, 170.0, nx)
+    fields = rng.randn(4, ny, nx)
+    coeffs = np.asarray(JI.prefilter(jnp.asarray(fields), order=order))
+    home = _home_idx(ny, 4)[8:]                       # rows 8..12, 12..10
+    px0, py0 = np.meshgrid(lons, lats[home])
+    px = px0 + rng.uniform(-5, 5, px0.shape)
+    py = np.clip(py0 + rng.uniform(-5, 5, py0.shape), -90, 90)
+    b = dict(x_min=lons[0], x_max=lons[-1], y_min=lats[0], y_max=lats[-1],
+             order=order)
+    hr = home[:, None].astype(np.int32)
+    want = np.asarray(JI.interp_at_parcels_multi(
+        jnp.asarray(fields), jnp.asarray(coeffs), jnp.asarray(px),
+        jnp.asarray(py), home_rows=jnp.asarray(hr), **b))
+    got = TI.interp_at_parcels_multi(
+        torch.tensor(fields), torch.tensor(coeffs), torch.tensor(px),
+        torch.tensor(py), home_rows=torch.tensor(hr), **b).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    # the pole-home rows took the bilinear: they differ from row labels
+    plain = TI.interp_at_parcels_multi(
+        torch.tensor(fields), torch.tensor(coeffs), torch.tensor(px),
+        torch.tensor(py), **b).numpy()
+    assert not np.allclose(got[:, -4:], plain[:, -4:])
+    one = np.asarray(JI.interp_at_parcels(
+        jnp.asarray(fields[1]), jnp.asarray(coeffs[1]), jnp.asarray(px),
+        jnp.asarray(py), home_rows=jnp.asarray(hr), **b))
+    np.testing.assert_allclose(TI.interp_at_parcels(
+        torch.tensor(fields[1]), torch.tensor(coeffs[1]), torch.tensor(px),
+        torch.tensor(py), home_rows=torch.tensor(hr), **b).numpy(), one,
+        rtol=0, atol=1e-12)
+
+
+BLOCK_CASES = [(dtype, order, cyclic)
+               for dtype in (torch.float64, torch.float32)
+               for order in (3, 1) for cyclic in (True, False)]
+
+
+@pytest.mark.parametrize("dtype,order,cyclic", BLOCK_CASES)
+def test_plain_step_on_blocks_equals_the_whole_grid(dtype, order, cyclic):
+    """``settls_step_torch`` on latitude blocks (home rows given, the last
+    block's reflected pad rows included), on a block starting at row 0 with
+    no home rows, and on x-blocks gives the whole grid's rows bit for bit;
+    ``settls_step`` on CPU tensors with ``home_rows`` takes the plain
+    version and launches nothing."""
+    grid, tu, tv, cu, cv, W, CW, px0, py0, dt, conv_x = _setup(cyclic, order,
+                                                               dtype)
+    ny, nx = px0.shape
+    kw = dict(settls_order=2, order=order, x_min=grid.x_min,
+              x_max=grid.x_max, y_min=grid.y_min, y_max=grid.y_max,
+              cyclic_x=cyclic)
+    home = torch.tensor(_home_idx(ny, 4), dtype=torch.int32)
+    before = cuda_settls.LAUNCHES
+    for t in (0, NT - 2):
+        wx, wy = settls_step_torch(W, CW, px0, py0, conv_x, dt, t, **kw)
+        wx, wy = wx[home.long()], wy[home.long()]
+        for r0, r1, c0, c1 in ((0, 4, 0, nx), (8, 16, 0, nx),
+                               (12, 16, 18, 36), (4, 8, 0, 18)):
+            hr = home[r0:r1]
+            bx = px0[hr.long()][:, c0:c1].contiguous()
+            by = py0[hr.long()][:, c0:c1].contiguous()
+            cx = conv_x[hr.long()]
+            got = settls_step_torch(W, CW, bx, by, cx, dt, t, home_rows=hr,
+                                    **kw)
+            _assert_bit_equal(got, (wx[r0:r1, c0:c1], wy[r0:r1, c0:c1]))
+            got = settls_step(tu, tv, interleave(cu, cv), bx, by, cx, dt, t,
+                              home_rows=hr, **kw)
+            _assert_bit_equal(got, (wx[r0:r1, c0:c1], wy[r0:r1, c0:c1]))
+            if r0 == 0:     # home rows = block rows: none needed
+                got = settls_step_torch(W, CW, bx, by, cx, dt, t, **kw)
+                _assert_bit_equal(got, (wx[:r1, c0:c1], wy[:r1, c0:c1]))
+    assert cuda_settls.LAUNCHES == before
+
+
+def test_scan_block_mode():
+    """``settls_scan`` on a block with ``home_rows`` or ``row_offset``
+    equals the whole scan's rows, trajectories included;
+    ``debug_per_step`` gives the (T-1,) per-step word (zeros on the direct
+    route); the windowed route refuses a block."""
+    grid, tu, tv, cu, cv, *_, px0, py0, dt, conv_x = _setup(True, 3,
+                                                            torch.float64)
+    scan = dict(settls_order=2, interp_order=3, kernel="torch")
+    tx, ty, _ = TS.settls_scan(tu, tv, cu, cv, px0, py0, dt, conv_x, grid,
+                               return_traj=True, **scan)
+    rows = slice(5, 11)
+    args = (tu, tv, cu, cv, px0[rows], py0[rows], dt, conv_x[rows], grid)
+    bx, by, flag = TS.settls_scan(*args, return_traj=True, row_offset=5,
+                                  **scan)
+    _assert_bit_equal((bx, by), (tx[:, rows], ty[:, rows]))
+    assert flag.shape == () and int(flag) == 0
+    fx, fy, steps = TS.settls_scan(
+        *args, return_traj=False, debug_per_step=True,
+        home_rows=torch.arange(5, 11), **scan)
+    _assert_bit_equal((fx, fy), (tx[-1, rows], ty[-1, rows]))
+    assert steps.dtype == torch.int32 and steps.tolist() == [0] * (NT - 1)
+    # without the home rows, rows 0.. of a block are pole-home rows
+    gx, _, _ = TS.settls_scan(tu, tv, cu, cv, px0[-6:], py0[-6:], dt,
+                              conv_x[-6:], grid, return_traj=False, **scan)
+    assert not torch.equal(gx, tx[-1, -6:])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TS.settls_scan(*args, return_traj=False, row_offset=5,
+                       engine="blockspec", **scan)
