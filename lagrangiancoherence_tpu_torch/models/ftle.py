@@ -24,19 +24,7 @@ from ..grid import EARTH_RADIUS
 from ..ops.filters import gaussian_filter
 from ..ops.stencil import derivative_spherical_coords
 
-__all__ = ["flowmap_gradient", "ftle_norm", "ftle_from_departures",
-           "sphere_xyz"]
-
-
-def sphere_xyz(x_dep: torch.Tensor, y_dep: torch.Tensor):
-    """Departure lon/lat -> Cartesian X, Y, Z on the sphere [m]
-    (LagrangianCoherence LCS/LCS.py:193-199)."""
-    lon = x_dep * (np.pi / 180.0)
-    colat = (y_dep - 90.0) * (np.pi / 180.0)  # colatitude (LCS.py:196)
-    sin_colat = torch.sin(colat)
-    return (EARTH_RADIUS * sin_colat * torch.cos(lon),
-            EARTH_RADIUS * sin_colat * torch.sin(lon),
-            EARTH_RADIUS * torch.cos(colat))
+__all__ = ["flowmap_gradient", "ftle_norm", "ftle_from_departures"]
 
 
 def flowmap_gradient(x_dep: torch.Tensor, y_dep: torch.Tensor, grid,
@@ -47,7 +35,12 @@ def flowmap_gradient(x_dep: torch.Tensor, y_dep: torch.Tensor, grid,
     if sigma is not None:
         x_dep = gaussian_filter(x_dep, sigma=sigma)
         y_dep = gaussian_filter(y_dep, sigma=sigma)
-    X, Y, Z = sphere_xyz(x_dep, y_dep)
+    lon = x_dep * (np.pi / 180.0)
+    colat = (y_dep - 90.0) * (np.pi / 180.0)  # colatitude (LCS.py:196)
+    sin_colat = torch.sin(colat)
+    X = EARTH_RADIUS * sin_colat * torch.cos(lon)
+    Y = EARTH_RADIUS * sin_colat * torch.sin(lon)
+    Z = EARTH_RADIUS * torch.cos(colat)
 
     def d(f, dim):
         return derivative_spherical_coords(f, grid.lats, grid.lons, dim=dim)

@@ -419,9 +419,7 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
                             kernel: str = "auto", engine: str = "auto",
                             rebin="sort", return_overflow: bool = False,
                             progress: bool = False, device=None,
-                            state: dict[str, torch.Tensor] | None = None,
-                            row_offset=0, home_rows=None,
-                            debug_per_step: bool = False):
+                            state: dict[str, torch.Tensor] | None = None):
     """Integrate parcel positions through ``T-1`` SETTLS steps.
 
     Parameters
@@ -438,9 +436,6 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
         tensor, else the CUDA card (``devices.resolve_device``).
     state : ``grid_state`` tensors on that device and dtype, as
         ``FTLEPipeline`` holds them; built from ``grid`` when omitted.
-    row_offset, home_rows, debug_per_step : passed to ``settls_scan`` (the
-        parcels are the whole grid; ``home_rows`` relabels their rows, and
-        with ``debug_per_step`` the overflow is the per-step word).
 
     Returns
     -------
@@ -469,8 +464,7 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
         u, v, cu, cv, state["px0"], state["py0"], dt, state["conv_x"], grid,
         settls_order=settls_order, interp_order=interp_order,
         return_traj=return_traj, kernel=kernel, engine=engine, rebin=rebin,
-        progress=progress, row_offset=row_offset, home_rows=home_rows,
-        debug_per_step=debug_per_step)
+        progress=progress)
     if return_overflow:
         return tuple(pos) + (overflow,)
     return tuple(pos)

@@ -9,6 +9,11 @@ slice of the neighbour block moved to the block's device with ``.to``.
 The blocked stencils and the Gaussian are functions of one padded block,
 in the op order of ``ops/stencil.py`` and ``ops/filters.py``, so that a
 block's rows equal the full-field result's.
+
+The port's ``parallel/pipeline.ftle_sharded`` does not use them: one
+process holds every block, so it assembles the departure points and takes
+the whole-grid gradient.  They are here for fields a caller keeps in
+blocks.
 """
 from __future__ import annotations
 

@@ -15,12 +15,15 @@ process:
   south end with symmetric-reflected rows (global row k >= ny is row
   2*ny-1-k), which start and integrate exactly as the rows they reflect
   and are cut off at the end;
-* the flow-map gradient takes width-2 halos from the neighbouring blocks
-  (``parallel/halo.py``); the norm is pointwise.
+* ``ftle_sharded`` assembles the departure points on the mesh's first
+  device and takes the whole-grid ``ftle_from_departures``: one process
+  holds every block, so JAX's blocked gradient and Gaussian (with their
+  halo exchanges, ``parallel/halo.py``) would buy no locality here.
 
 Every block runs the same operations on the same values as the whole-grid
-``models/settls.parcel_propagation_core`` and ``models/pipeline``, so on one
-kind of device the departure points are identical to theirs.
+``models/settls.parcel_propagation_core``, so on one kind of device the
+departure points, and with them the FTLE field, are identical to
+``models/pipeline``'s.
 
 ``ftle_batch`` is the animation workload's batch parallelism: one
 ``FTLEPipeline`` per device of a ``("t",)`` mesh over its share of the
@@ -32,14 +35,11 @@ import numpy as np
 import torch
 
 from ..grid import EARTH_RADIUS
-from ..models.ftle import ftle_norm, sphere_xyz
+from ..models.ftle import ftle_from_departures
 from ..models.pipeline import FTLEPipeline
 from ..models.settls import (_as_tensor, grid_state, resolve_engine,
                              resolve_kernel, settls_scan)
-from ..ops.filters import gaussian_filter
 from ..ops.interp import prefilter
-from .halo import (derivative_spherical_blocked, exchange_cols_cyclic,
-                   exchange_rows, gaussian_filter_blocked, gaussian_radius)
 
 __all__ = ["block_layout", "ftle_batch", "ftle_sharded",
            "parcel_propagation_sharded"]
@@ -87,7 +87,7 @@ def _integrate(u, v, timestep, grid, mesh, *, settls_order, interp_order,
                return_traj, kernel, engine):
     """Every block's ``settls_scan``: (nyd x nxd nested lists of (px, py)
     blocks, the overflow word max-reduced over the blocks on the mesh's
-    first device, the layout)."""
+    first device)."""
     nyd, nxd, devs = _mesh_split(grid, mesh, engine)
     ny, nx = grid.shape
     lay = block_layout(grid, nyd)
@@ -127,7 +127,7 @@ def _integrate(u, v, timestep, grid, mesh, *, settls_order, interp_order,
             flags.append(ovf)
     dev0 = devs[0, 0]
     overflow = torch.stack([f.to(dev0) for f in flags]).amax()
-    return blocks, overflow, lay
+    return blocks, overflow
 
 
 def _assemble(blocks, ny: int, dev0) -> torch.Tensor:
@@ -154,7 +154,7 @@ def parcel_propagation_sharded(u, v, timestep, grid, mesh, *,
     ``return_overflow=True`` appends the overflow word max-reduced over the
     blocks (int32, 0-dim; 0 on the direct route).
     """
-    blocks, overflow, _ = _integrate(
+    blocks, overflow = _integrate(
         u, v, timestep, grid, mesh, settls_order=settls_order,
         interp_order=interp_order, return_traj=return_traj, kernel=kernel,
         engine=engine)
@@ -175,82 +175,23 @@ def ftle_sharded(u, v, timestep, grid, mesh, *, settls_order: int = 0,
     ``mesh``, on the mesh's first device; the same field as
     ``models.pipeline.ftle_pipeline``.
 
-    ``sigma`` smooths the departure points: with no pad rows, block by
-    block (a halo of the Gaussian's radius, reflected at the global edges);
-    with pad rows, on the assembled field, re-sliced into blocks (JAX's
-    all-gather path).  A ``("y", "x")`` mesh takes no ``sigma`` and needs
+    The blocks integrate (``parcel_propagation_sharded``); their departure
+    points, assembled on the mesh's first device, go through the whole-grid
+    ``ftle_from_departures`` (``sigma`` smoothing, flow-map gradient,
+    norm).  A ``("y", "x")`` mesh takes no ``sigma``, as JAX's, and needs
     ``nx`` to divide its ``"x"`` axis.  ``return_overflow=True`` also
     returns the overflow word max-reduced over the blocks.
     """
-    ny, nx = grid.shape
-    nyd, nxd, devs = _mesh_split(grid, mesh, engine)
+    _, nxd, _ = _mesh_split(grid, mesh, engine)
     if nxd > 1 and sigma is not None:
         raise NotImplementedError(
             "gauss_sigma with an x-sharded mesh is not supported yet; use a "
             "1-D ('y',) mesh")
-    blocks, overflow, lay = _integrate(
+    px, py, overflow = parcel_propagation_sharded(
         u, v, timestep, grid, mesh, settls_order=settls_order,
-        interp_order=interp_order, return_traj=False, kernel=kernel,
-        engine=engine)
-    rows = lay["home_idx"].size // nyd
-    pad = rows * nyd - ny
-    dev0 = devs[0, 0]
-    if sigma is not None:
-        # nxd == 1: one block a row of the mesh
-        for k in (0, 1):
-            col = [row[0][k] for row in blocks]
-            if pad == 0:
-                padded = exchange_rows(col, gaussian_radius(sigma),
-                                       reflect_at_edges=True)
-                col = [gaussian_filter_blocked(p, sigma) for p in padded]
-            else:
-                # pad rows break the reflection at the last block's edge:
-                # smooth the assembled field once and cut it again
-                sm = gaussian_filter(_assemble([[b] for b in col], ny, dev0),
-                                     sigma)
-                sm = torch.cat([sm, sm.new_zeros((pad, nx))])
-                col = [sm[i * rows:(i + 1) * rows].to(b.device)
-                       for i, b in enumerate(col)]
-            for row, b in zip(blocks, col):
-                row[0][k] = b
-    # sphere map, then the six derivatives with width-2 halos
-    xyz = [[sphere_xyz(*b) for b in row] for row in blocks]
-    dlat = float(grid.lats[1] - grid.lats[0])
-    dlon = float(grid.lons[1] - grid.lons[0])
-    lats = lay["lats"]
-    deriv = [[[] for _ in range(nxd)] for _ in range(nyd)]
-    for k in range(3):
-        for i in range(nyd):
-            row = [xyz[i][j][k] for j in range(nxd)]
-            lat_b = lats[i * rows:(i + 1) * rows]
-            if nxd > 1:
-                padded = exchange_cols_cyclic(row, 2)
-                d1 = [derivative_spherical_blocked(
-                    p, 2, i * rows, lat_b, dlat, dlon, ny, dim=1,
-                    x_blocked=True, out_dtype=f.dtype)
-                    for p, f in zip(padded, row)]
-            else:
-                d1 = [derivative_spherical_blocked(
-                    row[0], 0, i * rows, lat_b, dlat, dlon, ny, dim=1)]
-            for j in range(nxd):
-                deriv[i][j].append(d1[j])
-        for j in range(nxd):
-            col = [xyz[i][j][k] for i in range(nyd)]
-            for i, p in enumerate(exchange_rows(col, 2)):
-                deriv[i][j].append(derivative_spherical_blocked(
-                    p, 2, i * rows, lats[i * rows:(i + 1) * rows], dlat,
-                    dlon, ny, dim=0, out_dtype=col[i].dtype))
-    norm = []
-    for i in range(nyd):
-        norm.append([])
-        for j in range(nxd):
-            # [dXdx, dXdy, dYdx, dYdy, dZdx, dZdy, 0, 0, 0]
-            d = deriv[i][j]
-            zero = torch.zeros_like(d[0])
-            norm[-1].append(ftle_norm(torch.stack(
-                [d[0], d[1], d[2], d[3], d[4], d[5], zero, zero, zero]),
-                compat=compat))
-    out = _assemble(norm, ny, dev0)
+        interp_order=interp_order, kernel=kernel, engine=engine,
+        return_overflow=True)
+    out = ftle_from_departures(px, py, grid, sigma=sigma, compat=compat)
     if return_overflow:
         return out, overflow
     return out

@@ -5,10 +5,10 @@ wrong in the pipeline is numerical — NaNs from bad inputs, out-of-range
 coordinates — and these helpers make it loud:
 
 * ``nan_debug()``: ``torch.autograd.set_detect_anomaly`` inside the
-  context.  It checks backward passes only, and the port runs none, so for
-  the pipeline it checks nothing: JAX's ``jax_debug_nans`` re-runs every
-  op that makes a NaN, which eager PyTorch has no switch for.  Use
-  ``checked_ftle`` for the winds;
+  context, with a warning on entry.  It checks backward passes only, and
+  the port runs none, so for the pipeline it checks nothing: JAX's
+  ``jax_debug_nans`` re-runs every op that makes a NaN, which eager
+  PyTorch has no switch for.  Use ``checked_ftle`` for the winds;
 * ``checked_ftle``: the FTLE pipeline with a finite-wind check, returning
   an error object the caller can raise (``err.throw()``), as JAX's
   ``checkify`` does, instead of a field silently pocked with NaNs
@@ -16,6 +16,7 @@ coordinates — and these helpers make it loud:
 """
 from __future__ import annotations
 
+import warnings
 from contextlib import contextmanager
 
 import torch
@@ -25,8 +26,12 @@ __all__ = ["CheckError", "nan_debug", "checked_ftle"]
 
 @contextmanager
 def nan_debug():
-    """``torch.autograd.set_detect_anomaly(True)`` inside the context (see
-    the module note: the port's pipeline has no backward pass to check)."""
+    """``torch.autograd.set_detect_anomaly(True)`` inside the context.  It
+    warns on entry: the port's pipeline has no backward pass, so nothing of
+    it is checked (see the module note)."""
+    warnings.warn("nan_debug checks autograd backward passes only, and the "
+                  "FTLE pipeline runs none; use checked_ftle to check the "
+                  "winds", stacklevel=3)
     with torch.autograd.set_detect_anomaly(True):
         yield
 

@@ -8,9 +8,15 @@ The blocked runs are held against the port's whole-grid functions
 tests/test_torch_settls_step.py and tests/test_torch_pipeline.py hold
 against JAX: in float64 the departure points are identical
 (``torch.equal``) and the FTLE within the JAX tests' own 1e-10.  JAX's
-sharded functions are not called here (each costs >= 20 s on the CPU,
-tests/slow_tests.txt); the host-side layout is held against JAX's arrays
-instead.  ``kernel="pallas"`` of the JAX tests is ``engine="blockspec"``.
+sharded functions are called twice (each costs ~10-20 s on the CPU,
+tests/slow_tests.txt), shared through a module fixture: its
+``parcel_propagation_sharded`` and its ``ftle_sharded`` on 4 blocks with
+pad rows, held against the port's at the bounds the port's whole-grid
+functions meet against JAX's whole grid (departure points within 1e-10;
+FTLE within 1e-5 of the field's largest value, since the stencil stage
+runs in float32, quirk Q6, where a 1e-13 position difference can flip the
+last bit of a sample).  ``kernel="pallas"`` of the JAX tests is
+``engine="blockspec"``.
 """
 from functools import lru_cache
 
@@ -19,6 +25,8 @@ import pytest
 import torch
 
 from lagrangiancoherence_tpu.grid import Grid as JaxGrid
+from lagrangiancoherence_tpu.parallel import mesh as jax_mesh
+from lagrangiancoherence_tpu.parallel import pipeline as jax_pipeline
 from lagrangiancoherence_tpu.testing import flows
 from lagrangiancoherence_tpu_torch import (Grid, ftle_batch, ftle_pipeline,
                                           ftle_sharded,
@@ -27,10 +35,12 @@ from lagrangiancoherence_tpu_torch.models.settls import (
     grid_state, parcel_propagation_core)
 from lagrangiancoherence_tpu_torch.ops import cuda_settls
 from lagrangiancoherence_tpu_torch.ops.filters import gaussian_filter
-from lagrangiancoherence_tpu_torch.ops.stencil import fourth_order_derivative
+from lagrangiancoherence_tpu_torch.ops.stencil import (
+    derivative_spherical_coords, fourth_order_derivative)
 from lagrangiancoherence_tpu_torch.parallel.halo import (
-    exchange_cols_cyclic, exchange_rows, fourth_order_dim0_blocked,
-    fourth_order_dim1_blocked, gaussian_filter_blocked, gaussian_radius)
+    derivative_spherical_blocked, exchange_cols_cyclic, exchange_rows,
+    fourth_order_dim0_blocked, fourth_order_dim1_blocked,
+    gaussian_filter_blocked, gaussian_radius)
 from lagrangiancoherence_tpu_torch.parallel.mesh import (batch_mesh,
                                                          parcel_mesh)
 from lagrangiancoherence_tpu_torch.parallel.pipeline import block_layout
@@ -40,6 +50,8 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 DT = -6 * 3600.0
 FTLE_ATOL = 1e-10
+JAX_DEPARTURE_ATOL = 1e-10      # tests/test_torch_settls_step.py's JAX_ATOL
+JAX_FTLE_RTOL = 1e-5            # tests/test_torch_pipeline.py's FTLE_RTOL
 
 
 def cpus(n):
@@ -134,6 +146,33 @@ def test_blocked_stencils_match_full():
     pads = exchange_rows(list(f.split(8)), r, reflect_at_edges=True)
     got_g = torch.cat([gaussian_filter_blocked(p, 1.5) for p in pads])
     assert torch.equal(got_g, gaussian_filter(f, 1.5))
+
+
+@pytest.mark.parametrize("dim, x_blocks", [(0, 1), (1, 1), (1, 4)])
+def test_blocked_spherical_derivative_matches_full(dim, x_blocks):
+    """``derivative_spherical_blocked`` on 4 latitude blocks (row halos of
+    width 2), or on whole-longitude blocks, or on 4 longitude blocks
+    (cyclic halos), equals ``derivative_spherical_coords`` bit for bit."""
+    f = torch.tensor(np.random.RandomState(1).randn(24, 32) * 6.4e6)
+    lats = np.linspace(-40.0, 52.0, 24)
+    lons = np.linspace(0.0, 348.75, 32)
+    dlat, dlon = float(lats[1] - lats[0]), float(lons[1] - lons[0])
+    want = derivative_spherical_coords(f, lats, lons, dim=dim)
+    rows = [slice(6 * i, 6 * i + 6) for i in range(4)]
+    if dim == 0:
+        pads = exchange_rows([f[r] for r in rows], 2)
+        got = torch.cat([derivative_spherical_blocked(
+            p, 2, r.start, lats[r], dlat, dlon, 24, dim=0)
+            for p, r in zip(pads, rows)])
+    elif x_blocks == 1:
+        got = torch.cat([derivative_spherical_blocked(
+            f[r], 0, r.start, lats[r], dlat, dlon, 24, dim=1) for r in rows])
+    else:
+        pads = exchange_cols_cyclic(list(f.split(32 // x_blocks, dim=1)), 2)
+        got = torch.cat([derivative_spherical_blocked(
+            p, 2, 0, lats, dlat, dlon, 24, dim=1, x_blocked=True)
+            for p in pads], dim=1)
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +338,46 @@ def test_sigma_with_x_sharding_rejected():
     mesh = parcel_mesh(devices=cpus(8), x_parallel=2)
     with pytest.raises(NotImplementedError):
         ftle_sharded(u, v, DT, grid, mesh, settls_order=0, sigma=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the port's block drivers against JAX's, on 4 blocks with 3 pad rows
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_sharded():
+    """JAX's ``parcel_propagation_sharded`` (SETTLS-2) and ``ftle_sharded``
+    (SETTLS-1, ``sigma=1.5``: the all-gather smoothing) on the vortex case
+    over 4 virtual CPU devices (89 rows: 3 pad rows)."""
+    u, v, grid = vortex_case()
+    jgrid = JaxGrid(lats=grid.lats, lons=grid.lons, cyclic_x=True)
+    mesh = jax_mesh.parcel_mesh(4)
+    px, py = jax_pipeline.parcel_propagation_sharded(u, v, DT, jgrid, mesh,
+                                                     settls_order=2)
+    out = jax_pipeline.ftle_sharded(u, v, DT, jgrid, mesh, settls_order=1,
+                                    sigma=1.5)
+    return np.asarray(px), np.asarray(py), np.asarray(out)
+
+
+def test_departures_match_jax_sharded(jax_sharded):
+    u, v, grid = vortex_case()
+    px, py = parcel_propagation_sharded(u, v, DT, grid,
+                                        parcel_mesh(devices=cpus(4)),
+                                        settls_order=2)
+    jx, jy, _ = jax_sharded
+    assert px.shape == jx.shape and px.dtype == torch.float64
+    np.testing.assert_allclose(px.numpy(), jx, rtol=0, atol=JAX_DEPARTURE_ATOL)
+    np.testing.assert_allclose(py.numpy(), jy, rtol=0, atol=JAX_DEPARTURE_ATOL)
+
+
+def test_ftle_matches_jax_sharded(jax_sharded):
+    u, v, grid = vortex_case()
+    out = ftle_sharded(u, v, DT, grid, parcel_mesh(devices=cpus(4)),
+                       settls_order=1, sigma=1.5)
+    want = jax_sharded[2]
+    assert out.shape == want.shape and np.isfinite(want).all()
+    err = np.abs(out.numpy() - want).max()
+    assert err <= JAX_FTLE_RTOL * np.abs(want).max(), err
 
 
 def test_blockspec_with_x_sharding_rejected():

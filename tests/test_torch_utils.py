@@ -52,8 +52,10 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_nan_debug_sets_anomaly_mode():
+    """It sets autograd's anomaly mode, and warns that the pipeline, which
+    has no backward pass, is not checked by it."""
     before = torch.is_anomaly_enabled()
-    with nan_debug():
+    with pytest.warns(UserWarning, match="checked_ftle"), nan_debug():
         assert torch.is_anomaly_enabled()
     assert torch.is_anomaly_enabled() == before
 
