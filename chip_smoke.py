@@ -38,20 +38,25 @@ same call in float64 on the CPU.  Phase 9 runs ``ftle_series`` over a
 card twice); phase 10 the latitude-block pipeline's
 ``parcel_propagation_sharded`` (1 and 4 blocks, and 2x2 with longitude
 blocks) and ``ftle_sharded`` (4 blocks, with and without ``sigma``) on a
-mesh of the card repeated, each identical to the whole-grid run.  Phase 3c
-also holds ``settls_step`` on blocks with their home rows against its plain
-version and the whole-grid launch's rows, and phase 6 times the step as 4
-blocks.  Each phase prints its results; the line
+mesh of the card repeated, each identical to the whole-grid run, and both
+on the windowed route (``engine="blockspec"``, 2 and 4 blocks); phase 11
+the port's examples (``--quick``), ``entry()`` and ``dryrun_multichip(4)``.
+Phase 3c also holds ``settls_step`` on blocks with their home rows against
+its plain version and the whole-grid launch's rows, and phase 6 times the
+step as 4 blocks; phase 3b holds a block of the windowed route and the
+ladder with a home-row mask against their plain versions, and phase 4b
+also runs ``engine="dma"``.  Each phase prints its results; the line
 before the last is the kernel record ``{"kernels": [{"name", "route",
 "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
 "bound_ms", "bound_by", "library_ms", "device_us_per_launch",
-"empty_launch_us"}]}`` (one entry per TPU kernel replaced; times: medians of
-CUDA-event trials; ``empty_launch_us``: an empty launch through the pole
-ladder's wrapper path in the same run;
-``settls_step``'s launches summed over phases 4, 8, 8b, 9 and 10, K1's
-from the
-per-group loop of phase 4, the routed gather's (its two kernels) and the
-ladder's from phase 4b, each counted from 0)
+"empty_launch_us", "launches_new_paths"}]}`` (one entry per TPU kernel
+replaced; ``launches_new_paths``: its launches on each path added by the
+windowed blocks, ``dma`` and the examples, each counted from 0; times:
+medians of CUDA-event trials; ``empty_launch_us``: an empty launch through
+the pole ladder's wrapper path in the same run; ``settls_step``'s launches
+summed over phases 4, 8, 8b, 9, 10 and 11, K1's from the per-group loop of
+phase 4, the routed gather's (its two kernels) and the ladder's from phase
+4b, each counted from 0)
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero, as does a machine without a CUDA device or a directory
 without the package.  ``--quick`` stops after phase 3c (build, and the
@@ -60,9 +65,10 @@ runs phase 8b alone, twice in one process, and prints no result line: its
 second pass shows the workflow's times without the first-use costs (kernel
 build, CUDA module loading, FFT plans) that the first pass of a process pays.
 
-This script imports neither JAX nor the JAX package: the oracle below is a
-plain numpy/scipy statement of the reference semantics
-(LagrangianCoherence LCS/trajectory.py:8-144, LCS.py:142-225, tools.py:11-267).
+This script imports neither JAX nor the JAX package: phase 5's oracle is
+the port's ``testing/oracle.py``, a plain numpy/scipy statement of the
+reference semantics (LagrangianCoherence LCS/trajectory.py:8-144,
+LCS.py:142-225, tools.py:11-267).
 """
 from __future__ import annotations
 
@@ -222,10 +228,13 @@ def shear_positions(grid):
 # ---------------------------------------------------------------------------
 
 def pole_launches(W, px, py, *, f0, nf, bounds, order=ORDER,
-                  pole_ladder=None):
+                  pole_ladder=None, home_rows=None):
     """The pole ladder's launch of one ``engine="blockspec"`` gather group at
     positions ``px``/``py``, on the group's pole-home rows, sorted as the
-    hoisted pole loop sorts them (its flags are the slots' levels).
+    hoisted pole loop sorts them (its flags are the slots' levels).  With
+    ``home_rows`` (``px``/``py`` a latitude block), the block's candidate
+    rows for the pole-home rows and their home-row mask, as a block's
+    in-gather pole pass takes them (``window_interp._block_pole_pass``).
     Returns ([(name, out shape, n flags, run)], slots per level), where
     ``run(kind, out, flags, overflow)`` launches the kernel (kind "cuda"),
     its plain version (kind "plain") or the empty launch (kind "empty") on
@@ -234,17 +243,24 @@ def pole_launches(W, px, py, *, f0, nf, bounds, order=ORDER,
     from lagrangiancoherence_tpu_torch.ops import cuda_window
     from lagrangiancoherence_tpu_torch.ops import pole as PL
     from lagrangiancoherence_tpu_torch.ops import window_interp as WI
-    ny, nx = px.shape
+    ny, nx = W.shape[-2:]
     fns = {"cuda": cuda_window.pole_ladder_gather,
            "plain": WI.pole_ladder_gather_plain,
            "empty": cuda_window.empty_launch}
-    rx, ry = PL.pole_rows(px, order), PL.pole_rows(py, order)
+    if home_rows is None:
+        rx, ry = PL.pole_rows(px, order), PL.pole_rows(py, order)
+        mask = torch.ones_like(rx)
+    else:
+        idx, mask = WI.block_pole_candidates(home_rows, order=order, ny=ny)
+        rx, ry = px[idx], py[idx]
+        mask = mask.to(px.dtype)[:, None].expand_as(rx)
     perm, _ = PL.pole_sort_state(rx, ry, order=order, ny=ny, nx=nx, **bounds)
     geom = dict(order=order, nx=nx)
     pxf = PL.pole_apply_perm(rx, perm, **geom)
     pole_ladder = tuple(pole_ladder or PL.POLE_LADDER)
     pack = PL.pole_pack(pxf, PL.pole_apply_perm(ry, perm, **geom),
-                        torch.ones_like(pxf), ny=ny, nx=nx, **bounds)
+                        PL.pole_apply_perm(mask, perm, **geom), ny=ny, nx=nx,
+                        **bounds)
     ln = WI.pole_launch(W.reshape(-1, ny, nx), pack, f0=f0, nf=nf,
                         ladder=pole_ladder)
     pr = PL.pole_levels(PL.pole_keys(pack, ny), ny=ny, ladder=pole_ladder)
@@ -254,18 +270,19 @@ def pole_launches(W, px, py, *, f0, nf, bounds, order=ORDER,
 
 
 def tier_run(CW, px, py, kind, *, f0, nf, wy, bounds, ladder, order=ORDER,
-             retry_tiles=256):
+             retry_tiles=256, home_rows=None):
     """One gather group's spline tiers through ``tier_window_gather`` (kind
     "cuda") or its plain version (kind "plain") on zeroed outputs: {"out",
     "plan", "fits", "flags", "overflow"} and a closure that launches again
-    on the same buffers."""
+    on the same buffers.  ``px``/``py``: the grid, or a full-width latitude
+    block whose rows have the global home rows ``home_rows``."""
     import torch
     from lagrangiancoherence_tpu_torch.ops import cuda_window
     from lagrangiancoherence_tpu_torch.ops import window_interp as WI
-    ny, nx = px.shape
+    ny, nx = CW.shape[-2:]
     ln, folds = WI.tier_launch(CW.reshape(-1, ny, nx), px, py, f0=f0, nf=nf,
                                order=order, wy=wy, retry_tiles=retry_tiles,
-                               ladder=ladder, **bounds)
+                               ladder=ladder, home_rows=home_rows, **bounds)
     fn = (cuda_window.tier_window_gather if kind == "cuda"
           else WI.tier_window_gather_plain)
     ints = dict(dtype=torch.int32, device=px.device)
@@ -660,91 +677,6 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold,
                     settls_step(uf, vf, CI, px, py, state["conv_x"], dt, 0,
                                 **kw))
     return worst["float32"]
-
-
-# ---------------------------------------------------------------------------
-# scipy oracle of the reference semantics (quirks Q1-Q6)
-# ---------------------------------------------------------------------------
-
-EARTH_RADIUS = 6371000.0
-
-
-def _oracle_interp(values, lats, lons, px, py, order):
-    """xr_map_coordinates(isglobal=True) (LagrangianCoherence LCS/tools.py:11-48)."""
-    from scipy.ndimage import map_coordinates
-    ny, nx = values.shape
-    new_x = nx * (px - lons.min()) / (lons.max() - lons.min())
-    new_y = ny * (py - lats.min()) / (lats.max() - lats.min())
-    out = np.empty((ny, nx))
-    inner = slice(order, ny - order)
-    out[inner] = map_coordinates(
-        values, [new_y[inner].ravel(), new_x[inner].ravel()], order=order,
-        mode="wrap").reshape(-1, nx)
-    pole = np.r_[0:order, ny - order:ny]
-    out[pole] = map_coordinates(
-        values, [new_y[pole].ravel(), new_x[pole].ravel()], order=1,
-        mode="constant").reshape(-1, nx)
-    return out
-
-
-def _oracle_positions(u, v, lats, lons, dt, settls_order, order):
-    """Cyclic SETTLS (LagrangianCoherence LCS/trajectory.py:80-124)."""
-    conv_y = 180.0 / (EARTH_RADIUS * np.pi)
-    conv_x = (conv_y / np.abs(np.cos(lats * np.pi / 180.0)))[:, None]
-
-    def clamp_wrap(px, py):
-        py = np.where(py > lats.min(), py, lats.min())
-        py = np.where(py < lats.max(), py, lats.max())
-        px = np.where(px > -180.0, px, px % 180.0)
-        return np.where(px < 180.0, px, -180.0 + px % 180.0), py
-
-    px, py = np.meshgrid(lons, lats)
-    for t in range(u.shape[0] - 1):
-        ua = _oracle_interp(u[t], lats, lons, px, py, order)
-        va = _oracle_interp(v[t], lats, lons, px, py, order)
-        py, px = py + dt * conv_y * va, px + dt * conv_x * ua
-        px, py = clamp_wrap(px, py)
-        for _ in range(settls_order):
-            ut, vt, un, vn = (_oracle_interp(f, lats, lons, px, py, order)
-                              for f in (u[t], v[t], u[t + 1], v[t + 1]))
-            py = py + 0.5 * dt * conv_y * (va + 2 * vt - vn)
-            px = px + 0.5 * dt * conv_x * (ua + 2 * ut - un)
-            px, py = clamp_wrap(px, py)
-    return px, py
-
-
-def _oracle_derivative(values, lats, lons, dim):
-    """4th-order stencil in float32 (Q6) with one-sided edge rows and cyclic
-    longitude, then the spherical metric (tools.py:190-267)."""
-    a = values.astype(np.float32)
-    ax = 0 if dim == 0 else 1
-    p1, m1 = np.roll(a, -1, ax), np.roll(a, 1, ax)
-    p2, m2 = np.roll(a, -2, ax), np.roll(a, 2, ax)
-    d = (4 / 3) * (p1 - m1) / 2 - (1 / 3) * (p2 - m2) / 4
-    if dim == 0:
-        d[:2] = (a[1:3] - a[:2]) / 2
-        d[-2:] = (a[-2:] - a[-3:-1]) / 2
-        return d.astype(np.float64) / ((np.pi / 180) * (lats[1] - lats[0])
-                                       * EARTH_RADIUS)
-    dx = (np.pi / 180) * (lons[1] - lons[0]) * EARTH_RADIUS \
-        * np.cos(lats * np.pi / 180)
-    return d.astype(np.float64) / dx[:, None]
-
-
-def oracle_ftle(u, v, lats, lons, dt, settls_order, order=ORDER):
-    """Q1-compatible FTLE norm of the scrambled [3,3] deformation matrix
-    (LagrangianCoherence LCS/LCS.py:142-157)."""
-    px, py = _oracle_positions(u, v, lats, lons, dt, settls_order, order)
-    lon = px * np.pi / 180
-    colat = (py - 90.0) * np.pi / 180
-    X = EARTH_RADIUS * np.sin(colat) * np.cos(lon)
-    Y = EARTH_RADIUS * np.sin(colat) * np.sin(lon)
-    Z = EARTH_RADIUS * np.cos(colat)
-    comps = [_oracle_derivative(f, lats, lons, dim)
-             for f in (X, Y, Z) for dim in (1, 0)]
-    tensor = np.stack(comps + [np.zeros_like(X)] * 3)        # (9, ny, nx)
-    return np.linalg.norm(tensor.reshape(3, 3, -1), ord=2,
-                          axis=(0, 1)).reshape(X.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -1305,17 +1237,33 @@ def phase_series(dev, card, check, grid):
     return launches
 
 
-def phase_blocks(dev, card, check, grid, u32, v32):
+def kernel_counts():
+    """Every launch counter of the port, by kernel."""
+    from lagrangiancoherence_tpu_torch.ops import (cuda_interp, cuda_settls,
+                                                   cuda_window)
+    return dict(cuda_window.LAUNCHES, settls_step=cuda_settls.LAUNCHES,
+                spline_gather=cuda_interp.LAUNCHES)
+
+
+def reset_counts():
+    from lagrangiancoherence_tpu_torch.ops import (cuda_interp, cuda_settls,
+                                                   cuda_window)
+    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+    cuda_window.reset_launches()
+
+
+def phase_blocks(dev, card, check, grid, u32, v32, by_path):
     """Phase 10: the latitude-block pipeline on the card: ``parcel_mesh`` of
     the card repeated n times runs n blocks in sequence.  Departure points
     against the whole-grid ``parcel_propagation_core``, FTLE against
-    ``ftle_pipeline``.  Returns its ``settls_step`` launches."""
+    ``ftle_pipeline``, on the direct route and on the windowed route
+    (``engine="blockspec"``, 2 and 4 blocks: 160 launches a block of each
+    window kernel).  Returns its ``settls_step`` launches."""
     import torch
     from lagrangiancoherence_tpu_torch import (ftle_pipeline, ftle_sharded,
                                               parcel_propagation_sharded)
     from lagrangiancoherence_tpu_torch.models.settls import \
         parcel_propagation_core
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
     from lagrangiancoherence_tpu_torch.parallel.mesh import parcel_mesh
     ny, nx = grid.shape
     log(f"== phase 10: parcel_propagation_sharded and ftle_sharded, "
@@ -1328,21 +1276,23 @@ def phase_blocks(dev, card, check, grid, u32, v32):
     def counted(fn):
         nonlocal total
         torch.cuda.synchronize()
-        cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+        reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        total += cuda_settls.LAUNCHES
-        return out, cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
+        counts = kernel_counts()
+        total += counts["settls_step"]
+        return out, counts
 
     meshes = {"n=1": (parcel_mesh(devices=[dev]), 1),
               "n=4": (parcel_mesh(devices=[dev] * 4), 4),
               "2x2 (y, x)": (parcel_mesh(devices=[dev] * 4, x_parallel=2),
                              4)}
     for label, (mesh, n) in meshes.items():
-        (px, py, ovf), launches, k1 = counted(
+        (px, py, ovf), c = counted(
             lambda: parcel_propagation_sharded(u32, v32, DT, grid, mesh,
                                                return_overflow=True, **kw))
         same = same_values(px, wx)[0] and same_values(py, wy)[0]
+        launches, k1 = c["settls_step"], c["spline_gather"]
         check(same and launches == (NT - 1) * n and k1 == 0
               and int(ovf) == 0,
               f"parcel_propagation_sharded {label}: departure points "
@@ -1350,18 +1300,46 @@ def phase_blocks(dev, card, check, grid, u32, v32):
               f"{launches} == {(NT - 1) * n}, K1 {k1} == 0, overflow "
               f"{int(ovf)} == 0")
     mesh4 = meshes["n=4"][0]
+    want_f = {}
     for sigma in (None, 1.5):
-        want = ftle_pipeline(u32, v32, DT, grid, sigma=sigma, **kw)
-        (out, ovf), launches, k1 = counted(
+        want_f[sigma] = want = ftle_pipeline(u32, v32, DT, grid, sigma=sigma,
+                                             **kw)
+        (out, ovf), c = counted(
             lambda: ftle_sharded(u32, v32, DT, grid, mesh4, sigma=sigma,
                                  return_overflow=True, **kw))
         same, err, where = same_values(out, want)
+        launches, k1 = c["settls_step"], c["spline_gather"]
         check(same and launches == (NT - 1) * 4 and k1 == 0
               and int(ovf) == 0,
               f"ftle_sharded n=4 sigma={sigma}: identical to ftle_pipeline="
               f"{same}" + ("" if same else f" (max|d|={err:.3e} at {where})")
               + f"; settls_step launches {launches} == {(NT - 1) * 4}, K1 "
               f"{k1}, overflow {int(ovf)}")
+    # the windowed route on blocks: each block routes its own tiles, sorts
+    # its complete polar 8-row groups and integrates the pole-home rows from
+    # their seed; identical to the whole grid's direct route, as phase 4b
+    # holds the routes identical
+    per_block = (NT - 1) * (1 + SETTLS_ORDER)
+    for n in (2, 4):
+        mesh = parcel_mesh(devices=[dev] * n)
+        want_c = {k: per_block * n for k in BLOCKSPEC_LAUNCHES}
+        for what, fn, want in (
+                ("departure points", lambda: parcel_propagation_sharded(
+                    u32, v32, DT, grid, mesh, engine="blockspec",
+                    return_overflow=True, **kw), (wx, wy)),
+                ("FTLE", lambda: ftle_sharded(
+                    u32, v32, DT, grid, mesh, engine="blockspec",
+                    return_overflow=True, **kw), (want_f[None],))):
+            (*got, ovf), c = counted(fn)
+            by_path[f"phase 10 blockspec n={n} {what}"] = c
+            same = all(same_values(g, w)[0] for g, w in zip(got, want))
+            on = {k: c[k] for k in want_c}
+            check(same and int(ovf) == 0 and on == want_c
+                  and c["settls_step"] == c["spline_gather"] == 0,
+                  f"blockspec on {n} blocks: {what} identical to the whole "
+                  f"grid's auto route={same}; overflow 0x{int(ovf):x}; "
+                  f"launches {json.dumps(on)} == {per_block} x {n} each, "
+                  f"settls_step {c['settls_step']}, K1 {c['spline_gather']}")
     times = {label: event_call_ms(lambda: ftle_sharded(
         u32, v32, DT, grid, meshes[label][0], **kw).cpu())
         for label in ("n=1", "n=4")}
@@ -1371,6 +1349,94 @@ def phase_blocks(dev, card, check, grid, u32, v32):
         f"{REPS} after a warm-up, field to the host): " + "; ".join(
             f"{k} {spread(t)[0]:.3f} [{min(t):.3f}, {max(t):.3f}]"
             for k, t in times.items()) + f" [{card}]")
+    times = {f"blockspec n={n}": event_call_ms(lambda: ftle_sharded(
+        u32, v32, DT, grid, parcel_mesh(devices=[dev] * n),
+        engine="blockspec", **kw).cpu()) for n in (1, 2, 4)}
+    times["blockspec whole grid"] = event_call_ms(lambda: ftle_pipeline(
+        u32, v32, DT, grid, engine="blockspec", **kw).cpu())
+    times["direct whole grid"] = event_call_ms(lambda: ftle_pipeline(
+        u32, v32, DT, grid, **kw).cpu())
+    log("windowed route on blocks, ms a field (CUDA events, median [min, "
+        f"max] of {REPS} after a warm-up, field to the host): " + "; ".join(
+            f"{k} {spread(t)[0]:.3f} [{min(t):.3f}, {max(t):.3f}]"
+            for k, t in times.items()) + f" [{card}]")
+    prof = profile_field(lambda: ftle_sharded(
+        u32, v32, DT, grid, parcel_mesh(devices=[dev] * 2),
+        engine="blockspec", **kw))
+    prof["idle_share"] = 1.0 - prof["busy_ms"] / spread(
+        times["blockspec n=2"])[0]
+    log(f"profile blockspec n=2: {json.dumps(prof)} [{card}]")
+    return total
+
+
+def phase_examples(dev, card, check, by_path):
+    """Phase 11: the port's examples with ``--quick`` on the card, its
+    ``entry()`` and ``dryrun_multichip(4)`` over the card repeated.
+    Returns their ``settls_step`` launches."""
+    import torch
+    from lagrangiancoherence_tpu_torch.entry import dryrun_multichip, entry
+    from lagrangiancoherence_tpu_torch.examples import (area_of_influence,
+                                                       ideal_vortex)
+    log(f"== phase 11: the examples (--quick), entry() and "
+        f"dryrun_multichip(4) on the card [{card}]")
+    total = 0
+
+    def counted(label, fn):
+        nonlocal total
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        by_path[f"phase 11 {label}"] = c = kernel_counts()
+        total += c["settls_step"]
+        others = sum(v for k, v in c.items() if k != "settls_step")
+        log(f"{label}: {wall:.3f} ms wall (its first call; the facade's "
+            f"set-up was paid in phases 8-9); launches {json.dumps(c)} "
+            f"[{card}]")
+        return out, c["settls_step"], others
+
+    # 4 steps each: two dye advections and two LCS runs
+    summary, steps, others = counted(
+        "ideal_vortex --quick", lambda: ideal_vortex.main(["--quick"]))
+    lam = summary["ftle"]["attracting"].data
+    check(steps == 16 and others == 0 and np.isfinite(lam[0, 5:-5]).all()
+          and summary["vortex_ring_max"] > summary["global_median"],
+          f"ideal_vortex --quick: settls_step launches {steps} == 16, "
+          f"others {others}; attracting FTLE rows [5:-5] finite; ring max "
+          f"{summary['vortex_ring_max']:.3f} > median "
+          f"{summary['global_median']:.3f}")
+    # 14 three-hourly steps over the window, then the one local step
+    summary, steps, others = counted(
+        "area_of_influence --quick",
+        lambda: area_of_influence.main(["--quick"]))
+    check(steps == 15 and others == 0 and summary["total_rain"] > 0
+          and summary["ridge_pixels"] > 0,
+          f"area_of_influence --quick: settls_step launches {steps} == 15, "
+          f"others {others}; {summary['ridge_pixels']} ridge pixels, rain "
+          f"{summary['total_rain']:.0f}")
+
+    def run_entry():
+        fn, args = entry()
+        return fn(*args), args[0].device
+    (out, where), steps, others = counted("entry()", run_entry)
+    finite = bool(torch.isfinite(out[2:-2]).all())
+    check(steps == 8 and others == 0 and finite and out.is_cuda
+          and where.type == "cuda" and out.shape == (181, 360),
+          f"entry(): settls_step launches {steps} == 8, others {others}; "
+          f"FTLE {tuple(out.shape)} on {out.device}, rows [2:-2] finite="
+          f"{finite}")
+    legs, steps, _ = counted("dryrun_multichip(4)",
+                             lambda: dryrun_multichip(4))
+    c = by_path["phase 11 dryrun_multichip(4)"]
+    windowed = [c[k] for k in BLOCKSPEC_LAUNCHES]
+    check(all(legs[k] < 1e-4 for k in ("sigma", "mesh_2d", "windowed"))
+          and str(legs["windowed_2d"]).startswith("SKIPPED")
+          and windowed == [24] * 3 and steps == 20,
+          f"dryrun_multichip(4) over the card: legs {json.dumps(legs)}; "
+          f"window kernel launches {windowed} == 4 blocks x 2 steps x 3 "
+          f"groups each; settls_step {steps} == 20")
     return total
 
 
@@ -1388,15 +1454,21 @@ def main() -> int:
     from lagrangiancoherence_tpu_torch import Grid, ftle_pipeline
     from lagrangiancoherence_tpu_torch.grid import global_quarter_degree_grid
     from lagrangiancoherence_tpu_torch.models.settls import (
-        _sort_bands, _sort_bin_bands, parcel_propagation_core)
+        _shard_sortable_groups, _sort_bands, _sort_bin_bands,
+        _sort_bin_shard, parcel_propagation_core)
+    from lagrangiancoherence_tpu_torch.parallel.pipeline import block_layout
     from lagrangiancoherence_tpu_torch.ops import (_build, cuda_interp,
                                                    cuda_settls, cuda_window)
     from lagrangiancoherence_tpu_torch.ops.interp import (
         interp_at_parcels_multi, prefilter)
     from lagrangiancoherence_tpu_torch.ops.tiles import (DEFAULT_LADDER,
-                                                         SORT_LADDER)
+                                                         SORT_LADDER,
+                                                         dma_ladder)
 
     failures = []
+    # launches of each kernel on the paths this slice added, each path
+    # counted from 0 (the kernel record carries them)
+    by_path = {}
 
     def check(ok, what):
         log(f"  {'ok  ' if ok else 'FAIL'} {what}")
@@ -1672,6 +1744,39 @@ def main() -> int:
                 ovf = res["pole_ladder_gather"][2]
                 check(ovf == 1 << 4, f"{name} clamped pole ladder raises "
                       f"bit 4 only: 0x{ovf:x}")
+        # a latitude block, as the block pipeline's windowed route lays it
+        # out: the last of 4 (rows 543-720 and 3 reflected pad rows, the
+        # north pole-home rows among both), block-sorted, the sort ladder;
+        # the ladder on the block's candidate rows with their home-row mask
+        rows = -(-ny // 4)
+        home = torch.tensor(block_layout(grid, 4)["home_idx"],
+                            device=dev)[3 * rows:]
+        px = torch.tensor(pxn, dtype=dtype, device=dev)[home]
+        py = torch.tensor(pyn, dtype=dtype, device=dev)[home]
+        px, py = _sort_bin_shard((px, py), px, _shard_sortable_groups(
+            home, grid, ORDER), grid)
+        label = f"flagship block 4 of 4 ({home.numel()} rows, 3 reflected)"
+        runs, levels = pole_launches(Wd, px, py, f0=0, nf=4, bounds=bounds,
+                                     home_rows=home)
+        for kname, (err, eq, ovf, _) in compare_launches(
+                runs, dtype, dev).items():
+            check(err == 0.0 and eq,
+                  f"{name} {label} {kname} with the home-row mask: "
+                  f"max|kernel-plain|={err:.3e} (== 0) levels equal={eq} "
+                  f"overflow=0x{ovf:x} pole levels {levels}")
+        kw = dict(f0=0, nf=4, wy=32, bounds=bounds, ladder=SORT_LADDER,
+                  home_rows=home)
+        plain, _ = tier_run(CWd, px, py, "plain", **kw)
+        new, _ = tier_run(CWd, px, py, "cuda", **kw)
+        torch.cuda.synchronize()
+        same_p, err, where = same_values(new["out"], plain["out"])
+        eq_p = all(torch.equal(new[k], plain[k])
+                   for k in ("plan", "fits", "flags", "overflow"))
+        check(same_p and eq_p and new["out"].shape[1] == -(-rows // 8) * 8,
+              f"{name} {label} tier_window_gather: identical to plain="
+              f"{same_p} (max|d|={err:.3e} at {where}), plan, fits, flags, "
+              f"overflow equal={eq_p}; overflow=0x{int(new['overflow']):x}, "
+              f"{new['plan'].shape[0]} tiles")
         del Wd, CWd
 
     # -- 4. main path ---------------------------------------------------------
@@ -1746,6 +1851,50 @@ def main() -> int:
     same, dnorm, _ = same_values(norm_b, norm)
     check(same, f"blockspec FTLE vs the fused step's FTLE: identical={same}, "
           f"max|d|={dnorm:.3e}")
+    # engine="dma": the same route; its capacity table applies only where a
+    # gather is given no ladder, and the sort-binned main path gives each
+    # the sort ladder, so the launches and the field are blockspec's
+    torch.cuda.synchronize()
+    cuda_interp.LAUNCHES = cuda_settls.LAUNCHES = 0
+    cuda_window.reset_launches()
+    norm_d, overflow_d = ftle_pipeline(u32, v32, DT, grid,
+                                       settls_order=SETTLS_ORDER,
+                                       interp_order=ORDER, kernel="cuda",
+                                       engine="dma", return_overflow=True)
+    torch.cuda.synchronize()
+    by_path["phase 4b dma"] = dict(cuda_window.LAUNCHES,
+                                   settls_step=cuda_settls.LAUNCHES,
+                                   spline_gather=cuda_interp.LAUNCHES)
+    on_route = {k: cuda_window.LAUNCHES[k] for k in BLOCKSPEC_LAUNCHES}
+    off_route = sum(cuda_window.LAUNCHES.values()) - sum(on_route.values()) \
+        + cuda_interp.LAUNCHES + cuda_settls.LAUNCHES
+    same_b = same_values(norm_d, norm_b)[0]
+    same_a = same_values(norm_d, norm)[0]
+    check(int(overflow_d) == 0 and on_route == BLOCKSPEC_LAUNCHES
+          and off_route == 0 and same_b and same_a,
+          f"engine='dma': overflow 0x{int(overflow_d):x}, launches "
+          f"{json.dumps(on_route)}, others {off_route}; FTLE identical to "
+          f"blockspec={same_b}, to auto={same_a}")
+    # one gather group on the dma ladder, in the grid layout (rebin=False):
+    # the routed gather against its plain version, overflow word included
+    n_tiles = -(-ny // 8) * -(-nx // 128)
+    kw = dict(f0=0, nf=4, wy=32, bounds=bounds, ladder=dma_ladder(n_tiles))
+    px, py = (torch.tensor(a, device=dev) for a in (pxn, pyn))
+    plain, _ = tier_run(CW, px, py, "plain", **kw)
+    new, _ = tier_run(CW, px, py, "cuda", **kw)
+    torch.cuda.synchronize()
+    same_p, err, where = same_values(new["out"], plain["out"])
+    eq_p = all(torch.equal(new[k], plain[k])
+               for k in ("plan", "fits", "flags", "overflow"))
+    tier = new["plan"][:, 0]
+    check(same_p and eq_p,
+          f"dma ladder ({n_tiles} tiles, capacities "
+          f"{[c for _, _, c in kw['ladder']]}), flagship F=4 in the grid "
+          f"layout: tier_window_gather identical to plain={same_p} "
+          f"(max|d|={err:.3e} at {where}), plan, fits, flags, overflow "
+          f"equal={eq_p}; overflow=0x{int(new['overflow']):x}; tiles in "
+          f"A-sub, A, ladder tiers="
+          f"{[int((tier == t).sum()) for t in range(-2, 9)]}")
     # neither SETTLS loop waits for the card
     mats = (state["prefilter_y"], state["prefilter_x"])
     cu = prefilter(u32, order=ORDER, matrices=mats)
@@ -1754,7 +1903,7 @@ def main() -> int:
                  state["conv_x"], grid)
     scan_kw = dict(settls_order=SETTLS_ORDER, interp_order=ORDER,
                    return_traj=False, kernel="cuda")
-    for engine in ("auto", "blockspec"):
+    for engine in ("auto", "blockspec", "dma"):
         torch.cuda.synchronize()
         sync_error = None
         torch.cuda.set_sync_debug_mode("error")
@@ -1769,12 +1918,15 @@ def main() -> int:
               f"set_sync_debug_mode('error'): no host sync ({sync_error})")
 
     # -- 5. end-to-end accuracy ------------------------------------------------
-    log(f"== phase 5: 1-degree global config vs the scipy oracle [{card}]")
+    log(f"== phase 5: 1-degree global config vs the port's scipy oracle "
+        f"(testing/oracle.py) [{card}]")
+    from lagrangiancoherence_tpu_torch.testing.oracle import oracle_ftle
     lats1 = np.linspace(-90.0, 90.0, 181)
     lons1 = np.linspace(-180.0, 179.0, 360)
     grid1 = Grid(lats=lats1, lons=lons1, cyclic_x=True)
     u1, v1 = bench_winds(lats1, lons1, 9)
-    want1 = oracle_ftle(u1, v1, lats1, lons1, DT, settls_order=2)
+    want1 = oracle_ftle(u1, v1, lats1, lons1, DT, settls_order=2,
+                        interp_order=ORDER, cyclic_x=True)
     for engine in ("auto", "blockspec"):
         got1 = ftle_pipeline(
             torch.tensor(u1, dtype=torch.float32, device=dev),
@@ -1863,7 +2015,6 @@ def main() -> int:
         "settls_step_kernel")}
     # the same step as 4 latitude blocks of 181 rows (the last with 3
     # reflected pad rows), one launch each: the step of phase 10's n = 4
-    from lagrangiancoherence_tpu_torch.parallel.pipeline import block_layout
     home4 = torch.tensor(block_layout(grid, 4)["home_idx"],
                          dtype=torch.int32, device=dev).split(
                              -(-ny // 4))
@@ -2117,7 +2268,10 @@ def main() -> int:
 
     # -- 9. the series runner; 10. the latitude-block pipeline ----------------
     launches += phase_series(dev, card, check, grid)
-    launches += phase_blocks(dev, card, check, grid, u32, v32)
+    launches += phase_blocks(dev, card, check, grid, u32, v32, by_path)
+
+    # -- 11. the examples, entry() and the multi-block dry run ----------------
+    launches += phase_examples(dev, card, check, by_path)
 
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")
@@ -2126,13 +2280,20 @@ def main() -> int:
         return 1
 
     def record(name, source, replaces, n, err):
+        # launches on each path this slice added; tier_window_gather's
+        # count, as its "launches", is its two kernels' sum
+        counters = {"tier_window_gather": ("tier_window_gather.route",
+                                           "tier_window_gather.gather")}
+        keys = counters.get(name, (name,))
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms[name], "plain_ms": plain_ms[name],
                 "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
                 "library_ms": library.get(name),
                 "device_us_per_launch": dev_us[name][0],
-                "empty_launch_us": empty_us}
+                "empty_launch_us": empty_us,
+                "launches_new_paths": {path: sum(c[k] for k in keys)
+                                       for path, c in by_path.items()}}
 
     log(json.dumps({"kernels": [
         record("settls_step", STEP_SOURCE, KERNEL_REPLACES, launches,

@@ -10,7 +10,8 @@ built with ``nvcc`` at first use on the GPU: the fused SETTLS step
 group per launch; and ``tier_window_gather`` (the spline window tiers: every
 tile routes itself) and the pole ladder ``pole_ladder_gather``
 (``ops/csrc/window_gather.cu``, through ``ops/cuda_window.py``) on the
-``engine="blockspec"`` route.  The entry
+windowed route (``engine="blockspec"`` or ``"dma"``, on the whole grid or
+on latitude blocks).  The entry
 points compute on the card unless asked for the CPU (``devices.py``).
 
 Public API (lazy-imported to keep ``import lagrangiancoherence_tpu_torch``
@@ -33,8 +34,12 @@ light):
 - ``Grid`` (grid)
 
 Beside them, ``utils/profiling.py`` (``trace``, ``StageTimer``,
-``device_memory_stats``) and ``utils/debug.py`` (``checked_ftle``,
-``nan_debug``).
+``device_memory_stats``), ``utils/debug.py`` (``checked_ftle``,
+``nan_debug``), ``testing/`` (the analytic flows and the scipy oracle),
+``examples/`` (``python -m lagrangiancoherence_tpu_torch.examples.
+ideal_vortex``, ``.area_of_influence``) and ``entry.py`` (``entry``,
+``dryrun_multichip``: the counterpart of the JAX package's
+``__graft_entry__.py``).
 """
 from __future__ import annotations
 

@@ -29,7 +29,7 @@ class FTLEPipeline(nn.Module):
     Semantics are those of ``LCS.__call__``'s core path (quirks Q1-Q6); see
     models/settls.py and models/ftle.py for the stage contracts.  ``kernel``
     is ``"auto"``, ``"cuda"`` or ``"torch"`` (``settls.resolve_kernel``);
-    ``engine`` is ``"auto"``, ``"dma-all"`` or ``"blockspec"``
+    ``engine`` is ``"auto"``, ``"dma-all"``, ``"blockspec"`` or ``"dma"``
     (``settls.resolve_engine``); ``rebin`` (``"sort"`` or False) is
     ``settls.settls_scan``'s.  JAX's ``pallas_wy``, ``pallas_wx``,
     ``pallas_retry_tiles`` and ``pallas_retry_wy`` are constants here
@@ -100,10 +100,11 @@ def ftle_pipeline(u, v, timestep, grid, *, settls_order: int = 0,
                   return_overflow: bool = False, device=None):
     """(T, ny, nx) winds → (ny, nx) FTLE norm, with ``u``'s dtype.
 
-    ``rebin`` (``"sort"`` or False) applies to ``engine="blockspec"``
-    (``settls.settls_scan``).  JAX's ``pallas_wy``, ``pallas_wx``,
-    ``pallas_retry_tiles`` and ``pallas_retry_wy`` are constants in the
-    port (``settls.WY``, ``tiles.WX``, and the ladders of ``ops/tiles.py``).
+    ``rebin`` (``"sort"`` or False) applies to the windowed route,
+    ``engine="blockspec"`` or ``"dma"`` (``settls.settls_scan``).  JAX's
+    ``pallas_wy``, ``pallas_wx``, ``pallas_retry_tiles`` and
+    ``pallas_retry_wy`` are constants in the port (``settls.WY``,
+    ``tiles.WX``, and the ladders of ``ops/tiles.py``).
 
     ``device``: where to compute; default: the device of ``u`` or ``v`` if
     a tensor, else the CUDA card (``devices.resolve_device``).  With

@@ -25,17 +25,29 @@ Two gather routes, chosen by ``engine`` (JAX's ``pallas_engine``):
 * ``"auto"`` / ``"dma-all"``: the direct per-parcel gather, one fused
   step per launch (``ops/cuda_settls.py``: the whole step of a parcel in
   one thread, K1 redesigned), with no windows; the overflow flag stays 0;
-* ``"blockspec"``: the windowed gather (K2, K3 and the pole ladder,
-  ``ops/window_interp.py``) with JAX's scan structure around it (models/settls.py:92-272, 463-715):
-  the polar bands are sort-binned into spatial-tile storage order every
-  ``SORT_K`` steps, the gathers take the sort ladder, and the pole-home
-  rows are sorted once per step and evaluated by a second, pole-only
-  gather.  The overflow word is ORed over every gather group.
+* ``"blockspec"`` and ``"dma"``: the windowed gather (the routed spline
+  tiers and the pole ladder, ``ops/window_interp.py``) with JAX's scan
+  structure around it (models/settls.py:92-272, 463-729): the polar bands
+  are sort-binned into spatial-tile storage order every ``SORT_K`` steps,
+  the gathers take the sort ladder, and the pole-home rows are sorted once
+  per step and evaluated by a second, pole-only gather.  The overflow word
+  is ORed over every gather group.  ``"dma"`` differs from ``"blockspec"``
+  only in the capacities of the ladder a gather takes when it is given
+  none (``tiles.dma_ladder``): with sort-binning on, every gather is given
+  the sort ladder, so the two engines give the same values and words.
+
+On a latitude block (``home_rows``) the windowed route runs JAX's block
+mode: one sort band of every complete 8-row group, whose groups with a
+non-polar or pole-home row keep their layout, and, given ``pole_seed``,
+the 2*order pole-home rows integrated on every block from the seed, each
+block writing back the rows it holds.
 
 JAX's trace-time ``LCS_*`` environment knobs are module constants at JAX's
 defaults; the port reads no environment variable.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -55,6 +67,7 @@ __all__ = ["grid_state", "parcel_propagation_core", "resolve_engine",
 
 KERNELS = ("auto", "cuda", "torch")
 ENGINES = ("auto", "dma-all", "blockspec", "dma")
+WINDOWED = ("blockspec", "dma")     # the engines of the windowed route
 # JAX's trace-time knobs at their defaults (models/settls.py:49-66):
 SORT_LAT = 60.0     # LCS_SORT_LAT: |lat| >= this is sort-binned
 SORT_K = 2          # LCS_SORT_K: re-bin every K steps
@@ -88,14 +101,10 @@ def resolve_kernel(kernel: str, device: torch.device, order: int) -> str:
 def resolve_engine(engine: str) -> str:
     """``"auto"`` → ``"dma-all"`` (JAX's default engine,
     ops/pallas_interp.py:102): the direct gather, one fused step per
-    launch.  ``"blockspec"`` takes the windowed route.  ``"dma"`` is not
-    ported yet."""
+    launch.  ``"blockspec"`` and ``"dma"`` take the windowed route (see
+    the module docstring)."""
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}: expected one of {ENGINES}")
-    if engine == "dma":
-        raise NotImplementedError(
-            "engine='dma' is not ported yet (ROADMAP.md Queue 1, the 'dma' "
-            "engine); use 'auto', 'dma-all' or 'blockspec'")
     return "dma-all" if engine == "auto" else engine
 
 
@@ -205,11 +214,66 @@ def _unsort_bands(arrs, perm, bands):
     return tuple(out)
 
 
+@lru_cache(maxsize=32)
+def _sortable_rows(grid, order: int, device: torch.device) -> torch.Tensor:
+    """(ny,) bool on ``device``: global row h is polar (|lat| >= SORT_LAT)
+    and not a pole-home row."""
+    lat = np.asarray(grid.lats)
+    h = np.arange(lat.size)
+    ok = (np.abs(lat) >= SORT_LAT) & (h >= order) & (h < lat.size - order)
+    return torch.as_tensor(ok, device=device)
+
+
+def _shard_sortable_groups(home_rows, grid, order: int) -> torch.Tensor:
+    """Per complete 8-row group of a block: every row's home row is polar
+    and none is a pole-home row (models/settls.py:192-210).  ``home_rows``:
+    (rows,) global home rows; reflected pad rows classify like the row
+    they reflect."""
+    ny = grid.shape[0]
+    hr = home_rows.reshape(-1).long()
+    ok = _sortable_rows(grid, order, hr.device)[hr.clamp(0, ny - 1)]
+    n8 = (hr.shape[0] // TILE_R) * TILE_R
+    return ok[:n8].reshape(-1, TILE_R).all(dim=1)
+
+
+def _sort_bin_shard(arrs, px, sortable, grid):
+    """A block's variant of ``_sort_bin_bands`` (models/settls.py:213-240):
+    one band of every complete 8-row group, sorted by the same
+    group-pinned, seam-anchored key; the groups that ``sortable`` leaves
+    out then take their own layout back."""
+    nx = grid.shape[1]
+    sx = nx / (grid.x_max - grid.x_min)
+    nr = (px.shape[0] // TILE_R) * TILE_R
+    xi = _to_index(torch.remainder(torch.floor(sx * (px[:nr] - grid.x_min)),
+                                   nx))
+    group = (torch.arange(nr, device=px.device) // TILE_R)[:, None]
+    key = (group * nx + _anchored_cells(xi, nx) // SORT_BX).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    keep = sortable[group]
+    out = [a.clone() for a in arrs]
+    for a, src in zip(out, arrs):
+        binned = _to_tile_storage(src[:nr].reshape(-1)[order], nr, nx)
+        a[:nr] = torch.where(keep, binned, src[:nr])
+    return tuple(out)
+
+
+def _unsort_shard(arrs, perm, nr8: int):
+    """Invert the cumulative block sort: order the first ``nr8`` rows by
+    the carried original linear index (models/settls.py:243-257)."""
+    if not nr8:
+        return arrs
+    order = torch.argsort(perm[:nr8].reshape(-1), stable=True)
+    out = [a.clone() for a in arrs]
+    for a, src in zip(out, arrs):
+        a[:nr8] = src[:nr8].reshape(-1)[order].reshape(nr8, -1)
+    return tuple(out)
+
+
 def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
                 settls_order: int, interp_order: int, return_traj: bool,
                 row_offset=0, home_rows=None, kernel: str = "torch",
                 engine: str = "auto", debug_per_step: bool = False,
-                rebin="sort", progress: bool = False):
+                rebin="sort", pole_seed=None, progress: bool = False):
     """The SETTLS time loop over a block of parcels.
 
     ``u``/``v``: (T, ny, nx) winds; ``cu``/``cv``: their prefiltered
@@ -218,16 +282,23 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
     ``row_offset`` (a latitude block) or are given by ``home_rows`` (an
     integer tensor of ``rows`` values, as the latitude-block pipeline passes
     for its reflected pad rows).  An x-block (``cols < nx``) leaves the
-    gather's geometry global: the winds are always the whole grid.
+    gather's geometry global: the winds are always the whole grid; the
+    windowed route takes full-width blocks only, as JAX's.
     ``dt``: 0-dim tensor.  ``conv_x``: (rows, 1) per-home-latitude factor.
     ``kernel``: ``"cuda"`` (the hand-written kernels) or ``"torch"`` (their
     plain versions).  ``engine``: ``"auto"`` / ``"dma-all"`` (the direct
     gather: one fused step per launch, ``ops/cuda_settls.py``) or
-    ``"blockspec"`` (the windowed gather, whole grids only); see
-    ``resolve_engine``.  The direct route's pole test keys on the home row
-    itself, so it needs none of JAX's ``pole_seed`` (the replicated pole
-    block of its windowed route).  ``rebin`` applies to ``"blockspec"``:
-    ``"sort"`` sort-bins the polar bands, False keeps the grid layout.
+    ``"blockspec"`` / ``"dma"`` (the windowed gather); see
+    ``resolve_engine``.  ``pole_seed``: on a block of the windowed route,
+    the initial positions and ``conv_x`` of the 2*order pole-home rows
+    ((2*order, nx) tensors each, ``parallel/pipeline._pole_seed``): every
+    block then integrates them, sorted once per step, and writes back the
+    rows it holds (JAX's replicated pole block); without it a block's
+    gathers evaluate the pole-home rows they hold themselves.  The direct
+    route keys its pole test on the home row itself and ignores it.
+    ``rebin`` applies to the windowed route: ``"sort"`` sort-bins the polar
+    bands (on a block, the complete 8-row groups whose home rows are all
+    polar), False keeps the grid layout.
     ``progress`` logs one ``Propagating time index`` line per step from the
     host loop (the reference's per-step print, LagrangianCoherence
     LCS/trajectory.py:81).  Nothing in the loop waits for the device.
@@ -248,13 +319,9 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
     engine = resolve_engine(engine)
     T, ny, nx = u.shape
     rows, cols = px0.shape
-    if engine == "blockspec" and (home_rows is not None or row_offset
-                                  or (rows, cols) != (ny, nx)):
-        raise NotImplementedError(
-            "engine='blockspec' on a block of the grid (home_rows, "
-            "row_offset or a block shape) is not ported yet (ROADMAP.md "
-            "Queue 1 item 9c, the windowed route's block mode); use "
-            "engine='auto'")
+    if engine in WINDOWED and cols != nx:
+        raise ValueError(f"engine={engine!r} needs full-width latitude "
+                         f"blocks: positions {rows}x{cols}, grid {ny}x{nx}")
     if home_rows is None and row_offset:
         home_rows = torch.arange(row_offset, row_offset + rows,
                                  device=px0.device)
@@ -277,14 +344,19 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
         # t, so the group at (t, t+1) is the contiguous window [2t, 2t + 4)
         W = torch.stack([u, v], dim=1).reshape(T * 2, ny, nx)
         CW = torch.stack([cu, cv], dim=1).reshape(T * 2, ny, nx)
-        if engine == "blockspec":
+        if engine in WINDOWED:
+            if pole_seed is not None:
+                pole_seed = tuple(_as_tensor(a, u.device, u.dtype)
+                                  for a in pole_seed)
             return _windowed_scan(W, CW, px0, py0, dt, conv_x, grid,
                                   settls_order=settls_order,
                                   order=interp_order,
                                   return_traj=return_traj, kernel=kernel,
+                                  engine=engine,
                                   rebin=rebin and not debug_per_step,
                                   debug_per_step=debug_per_step,
-                                  progress=progress)
+                                  progress=progress, home_rows=home_rows,
+                                  pole_seed=pole_seed)
 
         def step(px, py, t, out):
             return settls_step_torch(W, CW, px, py, conv_x, dt, t, out=out,
@@ -311,11 +383,14 @@ def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid, *,
 
 
 def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
-                   order: int, return_traj: bool, kernel: str, rebin,
-                   debug_per_step: bool, progress: bool):
-    """``settls_scan``'s ``engine="blockspec"`` route on the planar raw and
-    coefficient stacks ``W``/``CW`` (2T, ny, nx)."""
+                   order: int, return_traj: bool, kernel: str, engine: str,
+                   rebin, debug_per_step: bool, progress: bool, home_rows,
+                   pole_seed):
+    """``settls_scan``'s windowed route on the planar raw and coefficient
+    stacks ``W``/``CW`` (2T, ny, nx), for the whole grid (``home_rows``
+    None) or a full-width latitude block."""
     T, ny, nx = W.shape[0] // 2, *W.shape[1:]
+    rows = px0.shape[0]
     dtype, device = W.dtype, W.device
     conv_y = torch.full((), CONV_Y, dtype=dtype, device=device)
     bounds = dict(y_min=grid.y_min, y_max=grid.y_max,
@@ -323,28 +398,52 @@ def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
     zero_flag = torch.zeros((), dtype=torch.int32, device=device)
     if order not in (1, 3):
         raise NotImplementedError(
-            f"engine='blockspec' implements spline orders 1 and 3; got "
+            f"engine={engine!r} implements spline orders 1 and 3; got "
             f"interp_order={order}")
-    bands = _sort_bands(grid, order) if rebin else []
-    ladder = SORT_LADDER if bands else None
+    block = home_rows is not None
+    nr8 = (rows // TILE_R) * TILE_R
+    if block:
+        # JAX's block sort (models/settls.py:353-379) runs whenever the
+        # block holds a complete 8-row group, sortable or not
+        sort = bool(rebin) and nr8 > 0
+        sortable = _shard_sortable_groups(home_rows, grid, order) \
+            if sort else None
+    else:
+        bands = _sort_bands(grid, order) if rebin else []
+        sort = bool(bands)
+    ladder = SORT_LADDER if sort else None
     # the pole-home rows are sorted once per step and gathered by a
-    # pole-only call (JAX's LCS_POLE_HOIST, on)
-    hoist = ny > 2 * order
+    # pole-only call (JAX's LCS_POLE_HOIST, on); a block hoists them when
+    # it is given their seed
+    hoist = ny > 2 * order and (not block or pole_seed is not None)
+
+    def do_sort(arrs, px):
+        if block:
+            return _sort_bin_shard(arrs, px, sortable, grid)
+        return _sort_bin_bands(arrs, px, bands, grid)
+
+    def undo_sort(arrs, perm):
+        if not sort:
+            return arrs
+        if block:
+            return _unsort_shard(arrs, perm, nr8)
+        return _unsort_bands(arrs, perm, bands)
 
     def gather(t, px, py, nf, **kw):
         # F=2 groups take 64-row base windows (128 // nf), as JAX's
         return windowed_interp_multi(
             W, CW, px, py, order=order, wy=max(WY, 128 // nf), f0=2 * t,
-            nf=nf, ladder=ladder, kernel=kernel,
+            nf=nf, ladder=ladder, engine=engine, kernel=kernel,
             **bounds, **kw)
 
     def group(t, sets, nf):
         """One gather group: the values at each parcel set, and the flag."""
         if not hoist:
-            arr, fl = gather(t, sets[0][0], sets[0][1], nf)
+            arr, fl = gather(t, sets[0][0], sets[0][1], nf,
+                             home_rows=home_rows)
             return [arr], fl
         (px, py, _), (pxp, pyp, _) = sets
-        arr, fl = gather(t, px, py, nf, skip_pole=True)
+        arr, fl = gather(t, px, py, nf, skip_pole=True, home_rows=home_rows)
         valsp, flp = gather(t, pxp, pyp, nf, pole_block=True,
                             pole_presorted=True)
         return [arr, valsp], fl | flp
@@ -353,29 +452,40 @@ def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
         return clamp_wrap(px, py, cyclic_x=grid.cyclic_x, **bounds)
 
     px, py, flag = px0, py0, zero_flag
-    cx = conv_x.expand(ny, nx).contiguous() if bands else conv_x
-    perm = (torch.arange(ny * nx, dtype=torch.int32, device=device)
-            .reshape(ny, nx))
+    cx = conv_x.expand(rows, nx).contiguous() if sort else conv_x
+    perm = (torch.arange(rows * nx, dtype=torch.int32, device=device)
+            .reshape(rows, nx))
     pole_geom = dict(order=order, nx=nx)
+    if hoist and block:
+        # the replicated pole block (models/settls.py:485-529): its rows in
+        # home layout, and where each block row that holds one reads it
+        pxp_h, pyp_h, cxp_h = pole_seed
+        cxp_h = cxp_h.expand(2 * order, nx)
+        hr = home_rows.long()
+        pole_mask = ((hr < order) | (hr >= ny - order))[:, None]
+        pole_slot = torch.where(hr < order, hr,
+                                hr - (ny - 2 * order)).clamp(0, 2 * order - 1)
     traj_x, traj_y, step_flags = [px0], [py0], []
     for t in range(T - 1):
         if progress:
             logger.info("Propagating time index %d/%d", t + 1, T - 1)
         # JAX unrolls K steps per scan iteration when K divides the step
         # count and takes a lax.cond otherwise; both re-bin at t % K == 0
-        if bands and t % SORT_K == 0:
-            px, py, cx, perm = _sort_bin_bands((px, py, cx, perm), px,
-                                               bands, grid)
+        if sort and t % SORT_K == 0:
+            px, py, cx, perm = do_sort((px, py, cx, perm), px)
         # parcel sets (px, py, conv_x): the grid, then with the hoist the
         # pole-home rows as sorted point lists
         sets = [(px, py, cx)]
         if hoist:
-            rx, ry = P.pole_rows(px, order), P.pole_rows(py, order)
+            if block:
+                rx, ry, rc = pxp_h, pyp_h, cxp_h
+            else:
+                rx, ry = P.pole_rows(px, order), P.pole_rows(py, order)
+                rc = P.pole_rows(cx.expand(ny, nx), order)
             perm_p, inv_p = P.pole_sort_state(rx, ry, order=order, ny=ny,
                                               nx=nx, **bounds)
-            sets.append(tuple(
-                P.pole_apply_perm(a, perm_p, **pole_geom)
-                for a in (rx, ry, P.pole_rows(cx.expand(ny, nx), order))))
+            sets.append(tuple(P.pole_apply_perm(a, perm_p, **pole_geom)
+                              for a in (rx, ry, rc)))
         # Euler first guess (LagrangianCoherence LCS/trajectory.py:82-87)
         vals, fl = group(t, sets, 2)
         flag = flag | fl
@@ -392,12 +502,20 @@ def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
                     for (x, y, c), (ua, va), d in zip(sets, winds, deps)]
         px, py = sets[0][:2]
         if hoist:
-            px, py = (P.set_pole_rows(a, P.pole_unsort_rows(
-                b, inv_p, **pole_geom), order)
-                for a, b in zip((px, py), sets[1][:2]))
+            hx, hy = (P.pole_unsort_rows(b, inv_p, **pole_geom)
+                      for b in sets[1][:2])
+            if block:
+                # the rows this block holds, in storage order: the block
+                # sort never moves a group that holds a pole-home row
+                pxp_h, pyp_h = hx, hy
+                px = torch.where(pole_mask, hx.index_select(0, pole_slot), px)
+                py = torch.where(pole_mask, hy.index_select(0, pole_slot), py)
+            else:
+                px = P.set_pole_rows(px, hx, order)
+                py = P.set_pole_rows(py, hy, order)
         step_flags.append(flag)
         if return_traj:
-            opx, opy = _unsort_bands((px, py), perm, bands)
+            opx, opy = undo_sort((px, py), perm)
             traj_x.append(opx)
             traj_y.append(opy)
     if return_traj:
@@ -405,7 +523,7 @@ def _windowed_scan(W, CW, px0, py0, dt, conv_x, grid, *, settls_order: int,
     if debug_per_step:
         flag = torch.stack(step_flags) if step_flags else \
             zero_flag.new_zeros((0,))
-    return (*_unsort_bands((px, py), perm, bands), flag)
+    return (*undo_sort((px, py), perm), flag)
 
 
 def _as_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -430,7 +548,7 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
     timestep : seconds (scalar; negative for backward integration).
     grid : Grid (this package's, or any object with the same fields).
     kernel : ``"auto"``, ``"cuda"`` or ``"torch"`` (see ``resolve_kernel``).
-    engine : ``"auto"``, ``"dma-all"`` or ``"blockspec"`` (see
+    engine : ``"auto"``, ``"dma-all"``, ``"blockspec"`` or ``"dma"`` (see
         ``resolve_engine``); ``rebin``, ``progress``: see ``settls_scan``.
     device : where to compute; default: the device of ``u`` or ``v`` if a
         tensor, else the CUDA card (``devices.resolve_device``).

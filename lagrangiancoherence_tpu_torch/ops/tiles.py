@@ -38,8 +38,8 @@ from .interp import _fold_coord_wrap, _to_index, scale_positions
 
 __all__ = ["DEFAULT_LADDER", "N_SUB", "POLE_PAD", "Routing", "SORT_LADDER",
            "SUB_W", "TILE_C", "TILE_R", "Tier", "WX", "X_GRAN",
-           "capped_ladder", "coeff_pad_dims", "device_ints", "route_tiles",
-           "tile_folds", "unwrap_k"]
+           "capped_ladder", "coeff_pad_dims", "device_ints", "dma_ladder",
+           "route_tiles", "substitute_pole_rows", "tile_folds", "unwrap_k"]
 
 TILE_R = 8          # home rows per tile
 TILE_C = 128        # home columns per tile
@@ -116,16 +116,26 @@ def _fold_floor_mm(fold_t: torch.Tensor):
     return f.amin(dim=(1, 3)), f.amax(dim=(1, 3))
 
 
-def substitute_pole_rows(p: torch.Tensor, order: int) -> torch.Tensor:
+def substitute_pole_rows(p: torch.Tensor, order: int, ny: int | None = None,
+                         home_rows: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """The spline path's positions: pole-home rows take the nearest
-    non-pole row's positions (pallas_interp.py:1702-1716), so their
-    unbounded positions never widen a tile's window."""
-    ny, nx = p.shape
-    if order <= 0 or ny <= 2 * order:
+    non-pole row's positions (pallas_interp.py:1702-1723), so their
+    unbounded positions never widen a tile's window.  ``p`` is the (ny, nx)
+    grid, or with ``home_rows`` (the (rows,) global home row of each row of
+    ``p``) a latitude block of a grid of ``ny`` rows, whose rows are taken
+    through JAX's clipped home-row map: block row ``clip(clip(h, order,
+    ny-1-order) - home_rows[0], 0, rows-1)`` for home row ``h``."""
+    rows, nx = p.shape
+    if order <= 0 or rows <= 2 * order:
         return p
-    return torch.cat([p[order:order + 1].expand(order, nx),
-                      p[order:ny - order],
-                      p[ny - 1 - order:ny - order].expand(order, nx)])
+    if home_rows is None:
+        return torch.cat([p[order:order + 1].expand(order, nx),
+                          p[order:rows - order],
+                          p[rows - 1 - order:rows - order].expand(order, nx)])
+    hr = home_rows.reshape(-1).long()
+    idx = (hr.clamp(order, ny - 1 - order) - hr[0]).clamp(0, rows - 1)
+    return p.index_select(0, idx)
 
 
 def pad_tiles(p: torch.Tensor, ny_t: int, nx_t: int) -> torch.Tensor:
@@ -149,24 +159,45 @@ def capped_ladder(ny: int, nx: int, ladder=None):
                                   else ladder)]
 
 
+def dma_ladder(n_tiles: int, retry_wy: int = 64, retry_wx: int = 512
+               ) -> tuple:
+    """The ``dma`` / ``dma-all`` engines' escalation ladder for a parcel
+    block of ``n_tiles`` (8, 128) tiles (pallas_interp.py:1793-1805): the
+    windows of ``DEFAULT_LADDER``, with capacities that scale with the tile
+    count, since the manual-DMA engine iterates live slots only."""
+    n = n_tiles
+    return ((64, WX, max(384, n // 2)), (32, 384, max(96, n // 4)),
+            (64, 384, max(96, n // 4)), (32, retry_wx, max(64, n // 8)),
+            (retry_wy, retry_wx, max(64, n // 8)),
+            (128, 768, max(96, n // 4)), (32, None, max(96, n // 2)),
+            (64, None, max(128, n // 2)), (192, None, max(16, n // 4)))
+
+
 def tile_folds(px: torch.Tensor, py: torch.Tensor, *, ny: int, nx: int,
-               x_min, x_max, y_min, y_max, order: int,
-               wy: int) -> torch.Tensor:
-    """The folded (y, x) index coordinates (2, ny_t, nx_t) of the (ny, nx)
-    parcel grid, edge-padded to whole (8, 128) tiles, the pole-home rows at
-    their substituted positions: what the spline tiers gather at.  Raises
-    if tier A's (``wy``, ``WX``) window exceeds JAX's padded field."""
-    if px.shape != (ny, nx) or py.shape != (ny, nx):
-        raise ValueError(f"tile_folds: positions {tuple(px.shape)} are not "
-                         f"the full ({ny}, {nx}) grid")
+               x_min, x_max, y_min, y_max, order: int, wy: int,
+               home_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """The folded (y, x) index coordinates (2, rows_t, nx_t) of (rows, nx)
+    parcel positions, edge-padded to whole (8, 128) tiles
+    (pallas_interp.py:1688-1689), the pole-home rows at their substituted
+    positions (``substitute_pole_rows``): what the spline tiers gather at.
+    The positions are the (ny, nx) grid, or with ``home_rows`` a latitude
+    block of it.  Raises if tier A's (``wy``, ``WX``) window exceeds JAX's
+    padded field."""
+    rows = px.shape[0]
+    if px.shape != (rows, nx) or py.shape != (rows, nx) or (
+            home_rows is None and rows != ny):
+        raise ValueError(f"tile_folds: positions {tuple(px.shape)} are "
+                         f"neither the full ({ny}, {nx}) grid nor a "
+                         f"full-width block with home_rows")
     ypad, xpad = coeff_pad_dims(ny, nx)
-    ny_t, nx_t = _cdiv(ny, TILE_R) * TILE_R, _cdiv(nx, TILE_C) * TILE_C
+    ny_t, nx_t = _cdiv(rows, TILE_R) * TILE_R, _cdiv(nx, TILE_C) * TILE_C
     nxp_c = nx + 2 * xpad - 128
     if ny + 2 * ypad < wy or nxp_c < WX:
         raise ValueError(f"window ({wy},{WX}) exceeds padded field "
                          f"({ny + 2 * ypad},{nxp_c})")
-    pxt = pad_tiles(substitute_pole_rows(px, order), ny_t, nx_t)
-    pyt = pad_tiles(substitute_pole_rows(py, order), ny_t, nx_t)
+    sub = dict(order=order, ny=ny, home_rows=home_rows)
+    pxt = pad_tiles(substitute_pole_rows(px, **sub), ny_t, nx_t)
+    pyt = pad_tiles(substitute_pole_rows(py, **sub), ny_t, nx_t)
     xi, yi = scale_positions(pxt, pyt, x_min=x_min, x_max=x_max,
                              y_min=y_min, y_max=y_max, nx=nx, ny=ny)
     return torch.stack([_fold_coord_wrap(yi, ny), _fold_coord_wrap(xi, nx)])

@@ -40,9 +40,11 @@ from . import pole as P
 from .interp import _axis_taps, _cubic_weights, _to_index
 from .tiles import (N_SUB, SUB_W, TILE_C, TILE_R, WX, X_GRAN, _floor_int,
                     _fold_floor_mm, _tile_minmax, capped_ladder,
-                    coeff_pad_dims, tile_folds, unwrap_k)
+                    coeff_pad_dims, device_ints, dma_ladder, tile_folds,
+                    unwrap_k)
 
-__all__ = ["FIT_A", "FIT_S", "Launch", "PLAN_W", "kernel_functions",
+__all__ = ["FIT_A", "FIT_S", "Launch", "PLAN_W", "block_pole_candidates",
+           "kernel_functions",
            "plan_tiers", "pole_ladder_gather_plain", "pole_launch",
            "spline_launches", "sub_window_gather_plain", "tier_launch",
            "tier_window_gather_plain", "tile_window_gather_plain",
@@ -448,14 +450,16 @@ def spline_launches(rt, coeffs, *, f0, nf, order, wy) -> list[Launch]:
 
 
 def tier_launch(coeffs, px, py, *, f0, nf, order, wy, retry_tiles=256,
-                ladder=None, **bounds):
-    """The spline tiers' launch for the whole (ny, nx) parcel grid at
-    ``px``/``py``, and the folds (2, gy*8, gx*128) it gathers at
-    (``tiles.tile_folds``).  ``run(fn, out, plan, fits, flags, overflow)``
-    routes and gathers every tile into the (nf, gy*8, gx*128) output.
-    ``retry_tiles=0`` turns off tier A-sub and the ladder."""
+                ladder=None, home_rows=None, **bounds):
+    """The spline tiers' launch for the (ny, nx) parcel grid at
+    ``px``/``py``, or a full-width latitude block of it whose rows have
+    global home rows ``home_rows``, and the folds (2, rows_t, nx_t) it
+    gathers at (``tiles.tile_folds``).  ``run(fn, out, plan, fits, flags,
+    overflow)`` routes and gathers every tile into the (nf, rows_t, nx_t)
+    output.  ``retry_tiles=0`` turns off tier A-sub and the ladder."""
     _, ny, nx = coeffs.shape
-    folds = tile_folds(px, py, ny=ny, nx=nx, order=order, wy=wy, **bounds)
+    folds = tile_folds(px, py, ny=ny, nx=nx, order=order, wy=wy,
+                       home_rows=home_rows, **bounds)
     lad = tuple(capped_ladder(ny, nx, ladder)) if retry_tiles > 0 else ()
     n_tiles = folds.shape[1] // TILE_R * (folds.shape[2] // TILE_C)
     return Launch("tier_window_gather", "", n_tiles,
@@ -489,26 +493,74 @@ def _pole_eval(fns, raw, pxf, pyf, mask, *, f0, nf, bounds, ladder):
     return vals.reshape(nf, 2, -1), overflow[0]
 
 
+def block_pole_candidates(home_rows, *, order: int, ny: int):
+    """The block rows that stand for the 2*order pole-home rows ``exp2``
+    (rows 0..order-1, then ny-order..ny-1) in a latitude block with global
+    home rows ``home_rows`` (pallas_interp.py:2389-2402):
+    ``clip(exp2 - home_rows[0], 0, rows-1)``, (2*order,) int64, and whether
+    each one's home row is the one it stands for, (2*order,) bool."""
+    exp_s = list(range(max(ny - order, 0), ny))
+    exp_s += exp_s[-1:] * (order - len(exp_s))
+    hr = home_rows.reshape(-1).long()
+    exp2 = device_ints(tuple(range(order)) + tuple(exp_s),
+                       hr.device).long()
+    idx = (exp2 - hr[0]).clamp(0, hr.shape[0] - 1)
+    return idx, hr.index_select(0, idx) == exp2
+
+
+def _block_pole_pass(fns, raw, out, px, py, home_rows, *, order, pole_kw):
+    """The in-gather pole pass of a latitude block (pallas_interp.py:
+    2379-2433): the candidate rows (``block_pole_candidates``) are
+    evaluated as the pole-home rows, a candidate whose home row differs
+    raising no flag, and their values are written, in candidate order, into
+    the rows whose home row is a pole-home row.  Returns the pole pass's
+    overflow word."""
+    _, ny, nx = raw.shape
+    rows = px.shape[0]
+    idx, mask = block_pole_candidates(home_rows, order=order, ny=ny)
+    rx, ry = px.index_select(0, idx), py.index_select(0, idx)
+    geom = dict(order=order, nx=nx)
+    perm, inv = P.pole_sort_state(rx, ry, order=order, ny=ny, nx=nx,
+                                  **pole_kw["bounds"])
+    mk = mask.to(rx.dtype)[:, None].expand(2 * order, nx)
+    vals, flag = _pole_eval(fns, raw, P.pole_apply_perm(rx, perm, **geom),
+                            P.pole_apply_perm(ry, perm, **geom),
+                            P.pole_apply_perm(mk, perm, **geom), **pole_kw)
+    vals = P.pole_unsort_rows(vals, inv, **geom)       # (nf, 2*order, nx)
+    body = out[:, :rows, :nx]
+    pole_vals = body.clone()
+    for k in range(2 * order):
+        pole_vals.index_copy_(1, idx[k:k + 1], vals[:, k:k + 1])
+    hr = home_rows.reshape(-1)
+    is_pole = ((hr < order) | (hr >= ny - order))[None, :, None]
+    body.copy_(torch.where(is_pole, pole_vals, body))
+    return flag
+
+
 def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
                           order: int = 3, wy: int = 32,
                           retry_tiles: int = 256, f0: int = 0, nf=None,
                           ladder=None, pole_ladder=P.POLE_LADDER,
                           skip_pole: bool = False, pole_block: bool = False,
-                          pole_presorted: bool = False,
-                          kernel: str = "torch"):
+                          pole_presorted: bool = False, home_rows=None,
+                          engine: str = "blockspec", kernel: str = "torch"):
     """Fields ``[f0, f0 + nf)`` of the resident stacks at parcel positions,
     through the window tiers (``pallas_interp_multi`` with
-    ``engine="blockspec"``).
+    ``engine="blockspec"`` or ``"dma"``).
 
     ``raw``/``coeffs``: (..., ny, nx) raw and prefiltered stacks whose
     leading axes flatten to the field index.  ``px``/``py``: (ny, nx)
-    positions of the whole grid.  ``kernel``: ``"cuda"``
-    (``tier_window_gather`` and the pole ladder) or ``"torch"`` (their
-    plain versions).  ``wy``: tier A's window height.
+    positions of the whole grid, or (rows, nx) positions of a latitude
+    block whose rows have the global home rows ``home_rows`` ((rows,)
+    integer tensor; reflected pad rows carry the row they reflect).
+    Routing is position-only; the home rows place the pole-home rows.
+    ``kernel``: ``"cuda"`` (``tier_window_gather`` and the pole ladder) or
+    ``"torch"`` (their plain versions).  ``wy``: tier A's window height.
     ``retry_tiles=0`` turns off tier A-sub and the ladder (unfit tiles
     clamp and flag).  ``ladder``: (wy, wx or None, capacity) escalation
-    tiers, default ``tiles.DEFAULT_LADDER``.  ``pole_ladder``: the pole
-    path's three window heights.
+    tiers; by default the engine's: ``tiles.DEFAULT_LADDER`` for
+    ``"blockspec"``, ``tiles.dma_ladder`` of the block's tile count for
+    ``"dma"``.  ``pole_ladder``: the pole path's three window heights.
 
     ``skip_pole``: the pole-home rows keep spline values computed at the
     substituted positions (the caller evaluates them separately).
@@ -517,12 +569,15 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
     evaluated by the pole ladder alone; returns the values (nf, 2*order,
     nx) (presorted: (nf, 2, Mpad) in the lists' order).
 
-    Returns ``(out (nf, ny, nx), overflow)`` with JAX's overflow bitmask as
-    an int32 0-dim tensor: bit 1 a tile left uncovered, bit 2 a clamped
+    Returns ``(out (nf, rows, nx), overflow)`` with JAX's overflow bitmask
+    as an int32 0-dim tensor: bit 1 a tile left uncovered, bit 2 a clamped
     tier-A or A-sub tile, bit 3 an uncovered pole level-1 clamp (never
     raised: the ladder's last level takes every slot left), bit 4 the pole
     residue, bit 5+t a clamped tile of ladder tier t.
     """
+    if engine not in ("blockspec", "dma"):
+        raise ValueError(f"engine={engine!r}: the windowed gather serves "
+                         f"'blockspec' and 'dma'")
     ny, nx = raw.shape[-2:]
     raw = raw.reshape(-1, ny, nx)
     coeffs = coeffs.reshape(-1, ny, nx)
@@ -546,8 +601,12 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
                                 torch.ones_like(pxf), **pole_kw)
         return P.pole_unsort_rows(vals, inv, **geom), flag
 
+    rows = px.shape[0]
+    if ladder is None and engine == "dma":
+        ladder = dma_ladder(-(-rows // TILE_R) * -(-nx // TILE_C))
     ln, folds = tier_launch(coeffs, px, py, f0=f0, nf=nf, order=order, wy=wy,
-                            retry_tiles=retry_tiles, ladder=ladder, **bounds)
+                            retry_tiles=retry_tiles, ladder=ladder,
+                            home_rows=home_rows, **bounds)
     n_tiles = ln.n_flags
     ints = dict(dtype=torch.int32, device=px.device)
     out = torch.empty((nf,) + tuple(folds.shape[1:]), dtype=raw.dtype,
@@ -557,7 +616,10 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
            torch.empty((n_tiles,), **ints), torch.empty((n_tiles,), **ints),
            overflow)
 
-    if order > 0 and not skip_pole:
+    if order > 0 and not skip_pole and home_rows is not None:
+        overflow |= _block_pole_pass(fns, raw, out, px, py, home_rows,
+                                     order=order, pole_kw=pole_kw)
+    elif order > 0 and not skip_pole:
         vals, pflag = windowed_interp_multi(
             raw, coeffs, P.pole_rows(px, order), P.pole_rows(py, order),
             order=order, f0=f0, nf=nf, pole_ladder=pole_ladder,
@@ -565,4 +627,4 @@ def windowed_interp_multi(raw, coeffs, px, py, *, x_min, x_max, y_min, y_max,
         out[:, :order, :nx] = vals[:, :order]
         out[:, ny - order:ny, :nx] = vals[:, order:]
         overflow |= pflag
-    return out[:, :ny, :nx], overflow[0]
+    return out[:, :rows, :nx], overflow[0]

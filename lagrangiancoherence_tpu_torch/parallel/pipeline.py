@@ -23,7 +23,10 @@ process:
 Every block runs the same operations on the same values as the whole-grid
 ``models/settls.parcel_propagation_core``, so on one kind of device the
 departure points, and with them the FTLE field, are identical to
-``models/pipeline``'s.
+``models/pipeline``'s.  On the windowed route (``engine="blockspec"`` or
+``"dma"``) a block's tiles and sort groups differ from the whole grid's,
+but a tile whose taps fit its window gathers the direct gather's values,
+so while the overflow word stays 0 the same holds there.
 
 ``ftle_batch`` is the animation workload's batch parallelism: one
 ``FTLEPipeline`` per device of a ``("t",)`` mesh over its share of the
@@ -37,8 +40,9 @@ import torch
 from ..grid import EARTH_RADIUS
 from ..models.ftle import ftle_from_departures
 from ..models.pipeline import FTLEPipeline
-from ..models.settls import (_as_tensor, grid_state, resolve_engine,
-                             resolve_kernel, settls_scan)
+from ..models.settls import (WINDOWED, _as_tensor, grid_state,
+                             resolve_engine, resolve_kernel, settls_scan)
+from ..ops import pole as P
 from ..ops.interp import prefilter
 
 __all__ = ["block_layout", "ftle_batch", "ftle_sharded",
@@ -73,14 +77,27 @@ def _mesh_split(grid, mesh, engine: str):
     rejections of the x-split cases (parallel/pipeline.py:84-94)."""
     nyd, nxd = mesh.shape["y"], mesh.shape.get("x", 1)
     if nxd > 1:
-        if resolve_engine(engine) == "blockspec":
+        if resolve_engine(engine) in WINDOWED:
             raise NotImplementedError(
-                "engine='blockspec' needs full-width latitude blocks; use a "
-                "1-D ('y',) mesh")
+                f"engine={engine!r} needs full-width latitude blocks; use a "
+                f"1-D ('y',) mesh")
         if grid.shape[1] % nxd:
             raise ValueError(f"nx={grid.shape[1]} must divide the x mesh "
                              f"axis ({nxd})")
     return nyd, nxd, mesh.devices.reshape(nyd, nxd)
+
+
+def _pole_seed(state, order: int):
+    """The replicated pole block's seed (JAX parallel/pipeline.py:52-66):
+    the initial positions and ``conv_x`` of the 2*order pole-home rows,
+    taken from the grid state's rows, as the whole-grid scan takes them,
+    so that every block integrates them bit for bit as the whole grid
+    does; None where the grid has no such rows."""
+    ny = state["px0"].shape[0]
+    if order <= 0 or ny <= 2 * order:
+        return None
+    return tuple(P.pole_rows(state[k], order)
+                 for k in ("px0", "py0", "conv_x"))
 
 
 def _integrate(u, v, timestep, grid, mesh, *, settls_order, interp_order,
@@ -92,6 +109,7 @@ def _integrate(u, v, timestep, grid, mesh, *, settls_order, interp_order,
     ny, nx = grid.shape
     lay = block_layout(grid, nyd)
     rows, cols = lay["home_idx"].size // nyd, nx // nxd
+    windowed = resolve_engine(engine) in WINDOWED
     per_device = {}
     for dev in dict.fromkeys(devs.flat):
         # the winds once per device, prefiltered once there
@@ -109,7 +127,8 @@ def _integrate(u, v, timestep, grid, mesh, *, settls_order, interp_order,
             dt=torch.full((), float(timestep), dtype=ud.dtype, device=dev),
             kernel=resolve_kernel(kernel, dev, interp_order), home=home,
             px0=state["px0"][home], py0=state["py0"][home],
-            conv_x=state["conv_x"][home])
+            conv_x=state["conv_x"][home],
+            pole_seed=_pole_seed(state, interp_order) if windowed else None)
     blocks, flags = [], []
     for i in range(nyd):
         blocks.append([])
@@ -122,7 +141,8 @@ def _integrate(u, v, timestep, grid, mesh, *, settls_order, interp_order,
                 d["px0"][r, c].contiguous(), d["py0"][r, c].contiguous(),
                 d["dt"], d["conv_x"][r], grid, settls_order=settls_order,
                 interp_order=interp_order, return_traj=return_traj,
-                home_rows=d["home"][r], kernel=d["kernel"], engine=engine)
+                home_rows=d["home"][r], kernel=d["kernel"], engine=engine,
+                pole_seed=d["pole_seed"])
             blocks[-1].append(pos)
             flags.append(ovf)
     dev0 = devs[0, 0]
@@ -148,8 +168,10 @@ def parcel_propagation_sharded(u, v, timestep, grid, mesh, *,
     (T, ny, nx) with ``return_traj``, on the mesh's first device.  Blocks
     never exchange anything: the integration never couples parcels.  A
     ``("y", "x")`` mesh also splits the longitudes (``nx`` must divide).
-    ``kernel``/``engine``: as ``parcel_propagation_core``; the windowed
-    route (``engine="blockspec"``) has no block mode yet and raises.
+    ``kernel``/``engine``: as ``parcel_propagation_core``; on the
+    windowed route (``engine="blockspec"`` or ``"dma"``) every block also
+    integrates the 2*order pole-home rows from their seed (``_pole_seed``)
+    and writes back those it holds, as JAX's blocks do.
 
     ``return_overflow=True`` appends the overflow word max-reduced over the
     blocks (int32, 0-dim; 0 on the direct route).

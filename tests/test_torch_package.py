@@ -5,10 +5,12 @@
 * the CUDA path refuses CPU tensors and never falls back: the kernel's
   module imports without ``nvcc``, its build raises without it, and the
   launch counter stays 0 on the CPU path;
-* ``chip_smoke.py`` fails without a CUDA device, and its scipy oracle (it
-  may not import the JAX package) agrees with the package's oracle;
-* the facade, diagnostics, runner, block-pipeline and utility modules import
-  no ``jax``, ``pandas``, ``h5py`` or ``xarray`` (the card's machine has no
+* ``chip_smoke.py`` fails without a CUDA device, and the port's scipy
+  oracle it uses (it may not import the JAX package) agrees with the JAX
+  package's oracle;
+* the facade, diagnostics, runner, block-pipeline, utility, testing,
+  example and entry modules import no ``jax``, ``pandas``, ``h5py`` or
+  ``xarray`` (the card's machine has no
   pandas and no h5py), and the package exports the JAX package's public
   names.
 """
@@ -67,7 +69,9 @@ SLICE_MODULES = ("api", "cli", "field", "convert", "devices", "ops.sht",
                  "models.ridges", "models.area", "models.ridge_filter",
                  "utils.io", "utils.logging", "runners", "parallel.mesh",
                  "parallel.halo", "parallel.pipeline", "utils.profiling",
-                 "utils.debug")
+                 "utils.debug", "testing", "testing.flows", "testing.oracle",
+                 "examples", "examples.ideal_vortex",
+                 "examples.area_of_influence", "entry")
 
 
 def test_slice_modules_import_no_jax_pandas_h5py():
@@ -186,12 +190,18 @@ def _chip_smoke():
 
 
 def test_chip_smoke_oracle_matches_package_oracle():
+    """Phase 5 holds the card against the port's oracle
+    (``lagrangiancoherence_tpu_torch.testing.oracle``; chip_smoke.py may not
+    import the JAX package), on ``bench_winds``: it agrees with the JAX
+    package's oracle, and chip_smoke.py keeps no copy of its own."""
+    from lagrangiancoherence_tpu_torch.testing import oracle as PO
     chip_smoke = _chip_smoke()
+    assert not hasattr(chip_smoke, "oracle_ftle")
     lats = np.linspace(-90.0, 90.0, 19)
     lons = np.linspace(-180.0, 170.0, 36)
     u, v = chip_smoke.bench_winds(lats, lons, 4)
-    got = chip_smoke.oracle_ftle(u, v, lats, lons, -6 * 3600.0,
-                                 settls_order=2)
+    got = PO.oracle_ftle(u, v, lats, lons, -6 * 3600.0, settls_order=2,
+                         interp_order=3, cyclic_x=True)
     want = O.oracle_ftle(u, v, lats, lons, -6 * 3600.0, settls_order=2,
                          interp_order=3, cyclic_x=True)
     np.testing.assert_allclose(got, want, rtol=1e-12)

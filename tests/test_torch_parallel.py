@@ -16,7 +16,9 @@ functions meet against JAX's whole grid (departure points within 1e-10;
 FTLE within 1e-5 of the field's largest value, since the stencil stage
 runs in float32, quirk Q6, where a 1e-13 position difference can flip the
 last bit of a sample).  ``kernel="pallas"`` of the JAX tests is
-``engine="blockspec"``.
+``engine="blockspec"``: its blocks are held against the port's whole-grid
+windowed run, the same JAX departure points, and one call of JAX's
+``ftle_pipeline``.
 """
 from functools import lru_cache
 
@@ -25,6 +27,8 @@ import pytest
 import torch
 
 from lagrangiancoherence_tpu.grid import Grid as JaxGrid
+from lagrangiancoherence_tpu.models.pipeline import \
+    ftle_pipeline as jax_ftle_pipeline
 from lagrangiancoherence_tpu.parallel import mesh as jax_mesh
 from lagrangiancoherence_tpu.parallel import pipeline as jax_pipeline
 from lagrangiancoherence_tpu.testing import flows
@@ -32,9 +36,10 @@ from lagrangiancoherence_tpu_torch import (Grid, ftle_batch, ftle_pipeline,
                                           ftle_sharded,
                                           parcel_propagation_sharded)
 from lagrangiancoherence_tpu_torch.models.settls import (
-    grid_state, parcel_propagation_core)
+    grid_state, parcel_propagation_core, settls_scan)
 from lagrangiancoherence_tpu_torch.ops import cuda_settls
 from lagrangiancoherence_tpu_torch.ops.filters import gaussian_filter
+from lagrangiancoherence_tpu_torch.ops.interp import prefilter
 from lagrangiancoherence_tpu_torch.ops.stencil import (
     derivative_spherical_coords, fourth_order_derivative)
 from lagrangiancoherence_tpu_torch.parallel.halo import (
@@ -43,6 +48,7 @@ from lagrangiancoherence_tpu_torch.parallel.halo import (
     gaussian_filter_blocked, gaussian_radius)
 from lagrangiancoherence_tpu_torch.parallel.mesh import (batch_mesh,
                                                          parcel_mesh)
+from lagrangiancoherence_tpu_torch.parallel import pipeline as PP
 from lagrangiancoherence_tpu_torch.parallel.pipeline import block_layout
 
 torch.set_num_threads(1)
@@ -50,6 +56,7 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 DT = -6 * 3600.0
 FTLE_ATOL = 1e-10
+BLOCK_ATOL = 1e-12              # blocks against the whole grid, windowed
 JAX_DEPARTURE_ATOL = 1e-10      # tests/test_torch_settls_step.py's JAX_ATOL
 JAX_FTLE_RTOL = 1e-5            # tests/test_torch_pipeline.py's FTLE_RTOL
 
@@ -382,14 +389,107 @@ def test_ftle_matches_jax_sharded(jax_sharded):
 
 def test_blockspec_with_x_sharding_rejected():
     """The windowed route needs full-width latitude blocks, as JAX's pallas
-    kernel does (tests/test_sharding.py:209-221); on a ("y",) mesh it has
-    no block mode yet and raises too, naming the roadmap item."""
+    kernel does (tests/test_sharding.py:209-221), on both of its engines;
+    on a ("y",) mesh it runs."""
     u, v, grid = vortex_case()
     mesh = parcel_mesh(devices=cpus(8), x_parallel=2)
-    with pytest.raises(NotImplementedError, match="full-width"):
-        ftle_sharded(u, v, DT, grid, mesh, settls_order=0,
-                     engine="blockspec")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        parcel_propagation_sharded(u, v, DT, grid,
-                                   parcel_mesh(devices=cpus(2)),
-                                   settls_order=0, engine="blockspec")
+    for engine in ("blockspec", "dma"):
+        with pytest.raises(NotImplementedError, match="full-width"):
+            ftle_sharded(u, v, DT, grid, mesh, settls_order=0,
+                         engine=engine)
+    px, py = parcel_propagation_sharded(u, v, DT, grid,
+                                        parcel_mesh(devices=cpus(2)),
+                                        settls_order=0, engine="blockspec")
+    rx, ry = whole_departures(DT, 0)
+    assert torch.equal(px, rx) and torch.equal(py, ry)
+
+
+# ---------------------------------------------------------------------------
+# the windowed route on blocks (tests/test_sharding.py TestShardedPallas)
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def whole_blockspec(settls_order):
+    """The whole-grid windowed route: departure points and FTLE."""
+    u, v, grid = vortex_case()
+    pos = parcel_propagation_core(u, v, DT, grid, settls_order=settls_order,
+                                  engine="blockspec", device="cpu")
+    return pos, ftle_pipeline(u, v, DT, grid, settls_order=settls_order,
+                              engine="blockspec", device="cpu")
+
+
+@lru_cache(maxsize=None)
+def jax_ftle(settls_order):
+    u, v, grid = vortex_case()
+    jgrid = JaxGrid(lats=grid.lats, lons=grid.lons, cyclic_x=True)
+    return np.asarray(jax_ftle_pipeline(u, v, DT, jgrid,
+                                        settls_order=settls_order))
+
+
+@pytest.mark.parametrize("seeded", [True, False])
+@pytest.mark.parametrize("n_blocks", [2, 8])
+def test_blockspec_blocks_match(n_blocks, seeded, jax_sharded, monkeypatch):
+    """``parcel_propagation_sharded`` and ``ftle_sharded`` with
+    ``engine="blockspec"`` on 2 and 8 blocks (89 rows: 1 and 7 reflected
+    pad rows), with the replicated pole block's seed and without it (each
+    block then evaluates the pole-home rows it holds): departure points
+    within 1e-12 of the whole-grid windowed run (identical in fact) and
+    within 1e-10 of JAX's ``parcel_propagation_sharded`` (the XLA kernel);
+    FTLE within 1e-10 of the whole-grid windowed field and within 1e-5 of
+    JAX's ``ftle_pipeline``, relative to its largest value (the float32
+    stencil, Q6, turns the packages' 1e-13 departure differences into
+    last-bit flips: 8e-7 of a field of 38 here); overflow 0."""
+    if not seeded:
+        monkeypatch.setattr(PP, "_pole_seed", lambda *a: None)
+    u, v, grid = vortex_case()
+    mesh = parcel_mesh(devices=cpus(n_blocks))
+    px, py, ovf = parcel_propagation_sharded(
+        u, v, DT, grid, mesh, settls_order=2, engine="blockspec",
+        return_overflow=True)
+    (wx, wy), wf = whole_blockspec(2)
+    assert int(ovf) == 0
+    for got, whole, jax_ in ((px, wx, jax_sharded[0]),
+                             (py, wy, jax_sharded[1])):
+        np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=0,
+                                   atol=BLOCK_ATOL)
+        np.testing.assert_allclose(got.numpy(), jax_, rtol=0,
+                                   atol=JAX_DEPARTURE_ATOL)
+    out, ovf = ftle_sharded(u, v, DT, grid, mesh, settls_order=2,
+                            engine="blockspec", return_overflow=True)
+    assert int(ovf) == 0
+    assert_ftle(out, wf)
+    want = jax_ftle(2)
+    assert np.abs(out.numpy() - want).max() <= \
+        JAX_FTLE_RTOL * np.abs(want).max()
+
+
+def test_blockspec_block_scan_trajectories():
+    """``settls_scan`` on the windowed route over a block, with its seed,
+    returns the whole grid's trajectory rows, and ``debug_per_step`` its
+    per-step words; an x-block is refused."""
+    u, v, grid = vortex_case()
+    state = grid_state(grid, 3, dtype=torch.float64, device="cpu")
+    mats = (state["prefilter_y"], state["prefilter_x"])
+    ut, vt = torch.tensor(u), torch.tensor(v)
+    cu, cv = (prefilter(a, order=3, matrices=mats) for a in (ut, vt))
+    dt = torch.tensor(DT)
+    scan = dict(settls_order=1, interp_order=3, kernel="torch",
+                engine="blockspec")
+    tx, ty, _ = settls_scan(ut, vt, cu, cv, state["px0"], state["py0"], dt,
+                            state["conv_x"], grid, return_traj=True, **scan)
+    home = torch.tensor(block_layout(grid, 4)["home_idx"][69:92])
+    seed = PP._pole_seed(state, 3)
+    args = (ut, vt, cu, cv, state["px0"][home], state["py0"][home], dt,
+            state["conv_x"][home], grid)
+    bx, by, flag = settls_scan(*args, return_traj=True, home_rows=home,
+                               pole_seed=seed, **scan)
+    assert int(flag) == 0
+    assert torch.equal(bx, tx[:, home]) and torch.equal(by, ty[:, home])
+    fx, _, steps = settls_scan(*args, return_traj=False, home_rows=home,
+                               pole_seed=seed, debug_per_step=True, **scan)
+    assert torch.equal(fx, tx[-1, home])
+    assert steps.tolist() == [0] * (u.shape[0] - 1)
+    with pytest.raises(ValueError, match="full-width"):
+        settls_scan(ut, vt, cu, cv, state["px0"][:, :90],
+                    state["py0"][:, :90], dt, state["conv_x"], grid,
+                    return_traj=False, **scan)

@@ -1,6 +1,6 @@
 """Port parity of the ``engine="blockspec"`` SETTLS scan and pipeline:
-lagrangiancoherence_tpu_torch (plain versions of K2, K3 and the pole
-ladder, sort-binned polar bands, the hoisted pole loop) against the JAX
+lagrangiancoherence_tpu_torch (plain versions of the routed window gather
+and the pole ladder, sort-binned polar bands, the hoisted pole loop) against the JAX
 package's XLA scan and its own ``engine="auto"`` route, on the CPU in
 float64.
 
@@ -136,15 +136,17 @@ def test_to_tile_storage_tiles_hold_consecutive_ranks():
 
 
 def test_engines():
-    """"dma" is not ported and raises; "auto" is the K1 route, whose
-    overflow word stays 0; anything else is refused."""
+    """"dma" is the windowed route with the dma capacity table; "auto" is
+    the K1 route, whose overflow word stays 0; anything else is refused."""
     assert TS.resolve_engine("auto") == "dma-all"
     assert TS.resolve_engine("blockspec") == "blockspec"
+    assert TS.resolve_engine("dma") == "dma"
     u, v, lats, lons = _vortex()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(u, v, lats, lons, settls_order=1, engine="dma")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FTLEPipeline(Grid(lats=lats, lons=lons), engine="dma", device="cpu")
+    tx, ty, flag = _port(u, v, lats, lons, settls_order=1, engine="dma")
+    bx, by, _ = _port(u, v, lats, lons, settls_order=1, engine="blockspec")
+    assert int(flag) == 0 and torch.equal(tx, bx) and torch.equal(ty, by)
+    assert FTLEPipeline(Grid(lats=lats, lons=lons), engine="dma",
+                        device="cpu").engine == "dma"
     with pytest.raises(ValueError, match="engine="):
         TS.resolve_engine("pallas")
     *_, flag = _port(u, v, lats, lons, settls_order=1, engine="auto")

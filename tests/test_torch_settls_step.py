@@ -371,7 +371,7 @@ def test_scan_block_mode():
     """``settls_scan`` on a block with ``home_rows`` or ``row_offset``
     equals the whole scan's rows, trajectories included;
     ``debug_per_step`` gives the (T-1,) per-step word (zeros on the direct
-    route); the windowed route refuses a block."""
+    route); the windowed route refuses an x-block."""
     grid, tu, tv, cu, cv, *_, px0, py0, dt, conv_x = _setup(True, 3,
                                                             torch.float64)
     scan = dict(settls_order=2, interp_order=3, kernel="torch")
@@ -392,6 +392,7 @@ def test_scan_block_mode():
     gx, _, _ = TS.settls_scan(tu, tv, cu, cv, px0[-6:], py0[-6:], dt,
                               conv_x[-6:], grid, return_traj=False, **scan)
     assert not torch.equal(gx, tx[-1, -6:])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TS.settls_scan(*args, return_traj=False, row_offset=5,
+    with pytest.raises(ValueError, match="full-width"):
+        TS.settls_scan(tu, tv, cu, cv, px0[rows, :18], py0[rows, :18], dt,
+                       conv_x[rows], grid, return_traj=False, row_offset=5,
                        engine="blockspec", **scan)
