@@ -1,4 +1,4 @@
-"""Driver entry points of the port: the flagship forward step, and a
+"""Entry points of the port: the flagship forward step, and a
 multi-block dry run.
 
 Counterpart of the JAX package's ``__graft_entry__.py``.  ``entry()``

@@ -2,5 +2,5 @@
 ``examples/``: ``ideal_vortex`` (the acceptance test) and
 ``area_of_influence`` (the research workflow).  Each runs as
 ``python -m lagrangiancoherence_tpu_torch.examples.<name>`` with the JAX
-driver's flags and ``--device`` (default: the CUDA card), and its
+script's flags and ``--device`` (default: the CUDA card), and its
 ``main(argv)`` returns the summary it prints."""

@@ -1,7 +1,7 @@
 """Moisture-flux FTLE pipeline — the reference's research workload, on the port.
 
 Counterpart of ``examples/area_of_influence.py`` (the JAX package's
-driver), which mirrors the production pipeline of
+script), which mirrors the production pipeline of
 LagrangianCoherence LCS/area_of_influence.py:90-295 end to end, with
 synthetic ERA5-like inputs in place of the author's private netCDF files.
 

@@ -1,7 +1,7 @@
 """Ideal-vortex validation workload — the de-facto acceptance test, on the port.
 
-Counterpart of ``examples/ideal_vortex.py`` (the JAX package's driver),
-itself a re-creation of the reference's example driver
+Counterpart of ``examples/ideal_vortex.py`` (the JAX package's script),
+itself a re-creation of the reference's example script
 (LagrangianCoherence examples/ideal_vortex.py:211-403):
 
 * build the Rankine-like moving vortex flow (``testing/flows.py``);

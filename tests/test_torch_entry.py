@@ -1,4 +1,4 @@
-"""The port's driver entry points (``lagrangiancoherence_tpu_torch/
+"""The port's entry points (``lagrangiancoherence_tpu_torch/
 entry.py``) on the CPU: ``entry(device="cpu")`` gives JAX's
 ``__graft_entry__.entry()`` field within 1e-4 of its largest value (both in
 float32: the packages' last bits differ and the SETTLS-4 vortex grows
