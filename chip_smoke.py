@@ -52,7 +52,9 @@ before the last is the kernel record ``{"kernels": [{"name", "route",
 "empty_launch_us", "launches_new_paths"}]}`` (one entry per TPU kernel
 replaced; ``launches_new_paths``: its launches on each path added by the
 windowed blocks, ``dma`` and the examples, each counted from 0; times:
-medians of CUDA-event trials; ``empty_launch_us``: an empty launch through
+medians of CUDA-event trials; ``device_us_per_launch``: from
+``torch.profiler``, null where the profiler saw none of the kernel's
+launches; ``empty_launch_us``: an empty launch through
 the pole ladder's wrapper path in the same run; ``settls_step``'s launches
 summed over phases 4, 8, 8b, 9, 10 and 11, K1's from the per-group loop of
 phase 4, the routed gather's (its two kernels) and the ladder's from phase
@@ -349,32 +351,49 @@ def event_ms(fn, n):
     return out
 
 
-def device_us(fn, n, match):
+def device_us(fn, n, match, tries=3):
     """``torch.profiler`` over ``n`` calls of ``fn`` (after a warm-up): the
     mean device microseconds of one launch of the kernels whose name
-    contains ``match``, and how many of them one call launched."""
+    contains ``match``, and how many of them one call launched. The
+    profiler can drop device events; a profile that saw none, or a count
+    that is not a multiple of ``n``, is taken again, up to ``tries``
+    profiles, and the last one that saw any is kept. With none at all:
+    ``(None, 0)``, logged as not measured (a device time is reported, not
+    checked)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    cuda = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    us = [e.time_range.end - e.time_range.start for e in cuda
-          if match in e.name]
-    if not us or len(us) % n:
+    kept = None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = [e.time_range.end - e.time_range.start for e in cuda
+              if match in e.name]
+        if us:
+            kept = us
+        if us and not len(us) % n:
+            break
         names = {}
         for e in cuda:
             names[e.name[:50]] = names.get(e.name[:50], 0) + 1
         log(f"  device_us: {len(us)} events named *{match}* in {n} calls; "
             f"device events seen: {json.dumps(names)}")
-    if not us:
-        raise RuntimeError(f"torch.profiler saw no kernel named *{match}*")
-    return float(np.mean(us)), len(us) / n
+    if not kept:
+        log(f"  device_us: torch.profiler saw no kernel named *{match}* in "
+            f"{tries} profiles: not measured")
+        return None, 0
+    return float(np.mean(kept)), len(kept) / n
+
+
+def us_text(us):
+    """A device time from ``device_us`` as text."""
+    return "not measured" if us is None else f"{us:.2f} us"
 
 
 def spread(ms):
@@ -422,23 +441,28 @@ def host_us(fn, n=1000):
     return us
 
 
-def profile_field(run):
+def profile_field(run, tries=3):
     """``torch.profiler`` over one call of ``run`` (after a warm-up):
     the device's busy milliseconds (the union of its op intervals), the
     span from its first op to its last, the number of device ops and of
     kernels among them, and the five kernels with the most device time
-    as (name, ms, launches)."""
+    as (name, ms, launches). A profile that saw no device op (the profiler
+    can drop events) is taken again, up to ``tries`` profiles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    ops = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ops = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if ops:
+            break
+        log("  profile_field: torch.profiler saw no device op; again")
     busy, end, by_name = 0.0, float("-inf"), {}
     for t0, t1, name in ops:
         busy += max(0.0, t1 - max(t0, end))
@@ -2040,7 +2064,8 @@ def main() -> int:
         med, lo, hi = spread(t_ms)
         log(f"  settls_step {label}: {med:.4f} ms [{lo:.4f}, {hi:.4f}] a "
             f"step (median [min, max] of {TRIALS} trials of 50); device "
-            f"{us:.2f} us a launch x {n:g} = {us * n:.2f} us [{card}]")
+            f"{us_text(us)} a launch x {n:g}"
+            + ("" if us is None else f" = {us * n:.2f} us") + f" [{card}]")
     del blocks4
     plain_times = {"settls_step": event_ms(lambda: settls_step_torch(
         W, CW, px, py, state["conv_x"], dt, 0, **skw), 3)}
@@ -2077,16 +2102,19 @@ def main() -> int:
         g_us = device_us(again, 50, "tier_gather_kernel")
         med, lo, hi = spread(t_ms)
         log(f"  F={nf_} wy={wy_} tier_window_gather: {med:.4f} ms [{lo:.4f}, "
-            f"{hi:.4f}] a group; device: tier_route_kernel {r_us[0]:.2f} us, "
-            f"tier_gather_kernel {g_us[0]:.2f} us [{card}]")
+            f"{hi:.4f}] a group; device: tier_route_kernel "
+            f"{us_text(r_us[0])}, tier_gather_kernel {us_text(g_us[0])} "
+            f"[{card}]")
         if nf_ == 4:
             times["tier_window_gather"] = t_ms
-            dev_us["tier_window_gather"] = ((r_us[0] + g_us[0]) / 2, 2)
+            dev_us["tier_window_gather"] = (
+                None if None in (r_us[0], g_us[0])
+                else (r_us[0] + g_us[0]) / 2, 2)
     _, again = tier_run(CW, spx, spy, "cuda", f0=0, nf=4, wy=32,
                         bounds=bounds, ladder=())
     log(f"  F=4 wy=32 with an empty ladder (the last CTA plans no pass): "
         f"tier_route_kernel "
-        f"{device_us(again, 50, 'tier_route_kernel')[0]:.2f} us [{card}]")
+        f"{us_text(device_us(again, 50, 'tier_route_kernel')[0])} [{card}]")
     _, again = tier_run(CW, spx, spy, "plain", f0=0, nf=4, wy=32,
                         bounds=bounds, ladder=SORT_LADDER)
     plain_times["tier_window_gather"] = event_ms(again, 5)
@@ -2165,7 +2193,7 @@ def main() -> int:
         med, lo, hi = spread(turn_ms[k])
         log(f"  in turns, {k}: {med * 1e3:.2f} us [{lo * 1e3:.2f}, "
             f"{hi * 1e3:.2f}] a call (CUDA events, median [min, max] of "
-            f"{len(turn_ms[k])} trials of 50); {turn_dev[k][0]:.2f} us on "
+            f"{len(turn_ms[k])} trials of 50); {us_text(turn_dev[k][0])} on "
             f"the device x {turn_dev[k][1]:g} kernels; host alone "
             + " / ".join(f"{u:.2f}" for u in turn_host[k])
             + f" us a call (1000 unsynchronised calls, twice) [{card}]")
@@ -2187,7 +2215,7 @@ def main() -> int:
         if kname in plain_times:
             plain_ms[kname], plo, phi = spread(plain_times[kname])
             line += f", plain {plain_ms[kname]:.4f} ms [{plo:.4f}, {phi:.4f}]"
-        if kname in dev_us:
+        if dev_us.get(kname, (None,))[0] is not None:
             us, per_call = dev_us[kname]
             line += (f"; device {us:.2f} us a launch x {per_call:g} launches "
                      f"= {us * per_call:.2f} us, host issue and gaps "

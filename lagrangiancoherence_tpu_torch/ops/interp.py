@@ -340,25 +340,52 @@ def interp_at_parcels_multi(fields: torch.Tensor, coeffs: torch.Tensor,
 
     ``fields``/``coeffs``: (F, ny, nx); returns (F,) + px.shape.  Taps
     accumulate in the JAX order: y taps outer, x taps inner, the weight
-    ``wy[j] * wx[k]`` formed first.
+    ``wy[j] * wx[k]`` formed first.  A tap reads a grid point's F
+    coefficients at once, and a tap outside the grid makes the parcel's
+    value NaN (``_take``'s fill: NaN times a weight, summed, stays NaN).
+    Without ``home_rows`` the pole rows are a run at each end of axis 0,
+    and only they take the bilinear pass.
     """
     nf, ny, nx = fields.shape
+    size = ny * nx
     xi_f, yi_f = scale_positions(px, py, x_min=x_min, x_max=x_max,
                                  y_min=y_min, y_max=y_max, nx=nx, ny=ny)
-    flat = coeffs.reshape(nf, ny * nx)
+    table = coeffs.reshape(nf, size)
     yi, wy = _axis_taps(_fold_coord_wrap(yi_f, ny), ny, order)
     xi, wx = _axis_taps(_fold_coord_wrap(xi_f, nx), nx, order)
 
-    interior = None
+    interior = outside = None
+    term = table.new_empty((nf, px.numel()))
     for j in range(len(yi)):
         row_base = yi[j] * nx
         for k in range(len(xi)):
+            lin = row_base + xi[k]
+            idx = lin.clamp(0, size - 1)
+            off = idx != lin
+            outside = off if outside is None else outside.logical_or_(off)
+            torch.index_select(table, 1, idx.reshape(-1), out=term)
             w = (wy[j] * wx[k]).to(fields.dtype)
-            term = w[None] * _take(flat, row_base + xi[k])
-            interior = term if interior is None else interior + term
+            term.mul_(w.reshape(1, -1))
+            if interior is None:
+                interior, term = term, torch.empty_like(term)
+            else:
+                interior.add_(term)
+    interior.masked_fill_(outside.reshape(1, -1), float("nan"))
+    interior = interior.reshape((nf,) + px.shape)
 
-    poles = _bilinear_constant(fields.reshape(nf, ny * nx), yi_f, xi_f,
-                               ny, nx)
-    is_pole = _pole_rows(px.shape, order, ny, row_offset, px.device,
-                         home_rows)
-    return torch.where(is_pole[None], poles, interior)
+    raw = fields.reshape(nf, size)
+    if home_rows is not None:
+        poles = _bilinear_constant(raw, yi_f, xi_f, ny, nx)
+        is_pole = _pole_rows(px.shape, order, ny, row_offset, px.device,
+                             home_rows)
+        return torch.where(is_pole[None], poles, interior)
+    # the rows r with r + row_offset < order, and with r + row_offset >=
+    # ny - order
+    rows = px.shape[0]
+    south = min(max(order - row_offset, 0), rows)
+    north = max(min(ny - order - row_offset, rows), south)
+    for sl in (slice(0, south), slice(north, rows)):
+        if sl.stop > sl.start:
+            interior[:, sl] = _bilinear_constant(raw, yi_f[sl], xi_f[sl],
+                                                 ny, nx)
+    return interior

@@ -178,3 +178,61 @@ def test_cuda_wrapper_on_cpu_is_the_plain_version():
         assert torch.equal(got, want)
         assert flag.dtype == torch.int32 and int(flag) == 0
     assert cuda_interp.LAUNCHES == before
+
+
+def _per_tap_multi(fields, coeffs, px, py, *, order, row_offset=0,
+                   home_rows=None, **b):
+    """``interp_at_parcels_multi`` restated one tap at a time, as JAX writes
+    it: every tap's F values through ``_take`` (NaN outside the grid), the
+    bilinear pole pass over every parcel, and a ``where`` on the home row."""
+    nf, ny, nx = fields.shape
+    xi_f, yi_f = TI.scale_positions(px, py, nx=nx, ny=ny, **b)
+    flat = coeffs.reshape(nf, ny * nx)
+    yi, wy = TI._axis_taps(TI._fold_coord_wrap(yi_f, ny), ny, order)
+    xi, wx = TI._axis_taps(TI._fold_coord_wrap(xi_f, nx), nx, order)
+    interior = None
+    for j in range(len(yi)):
+        for k in range(len(xi)):
+            w = (wy[j] * wx[k]).to(fields.dtype)
+            term = w[None] * TI._take(flat, yi[j] * nx + xi[k])
+            interior = term if interior is None else interior + term
+    poles = TI._bilinear_constant(fields.reshape(nf, ny * nx), yi_f, xi_f,
+                                  ny, nx)
+    is_pole = TI._pole_rows(px.shape, order, ny, row_offset, px.device,
+                            home_rows)
+    return torch.where(is_pole[None], poles, interior)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("ny,nx", [(19, 36), (4, 7)])
+def test_multi_gather_bit_for_bit_per_tap(ny, nx, order, dtype):
+    """The gather's one NaN mask, in-place products and pole pass on the
+    pole rows give the per-tap formulation's values bit for bit (NaN where
+    it is NaN): whole grids, row blocks at either pole and inside, blocks
+    with home rows, flat and 3-D position arrays, and positions that are
+    NaN, infinite or 1e30 (folded far outside the grid on the small one)."""
+    rng = np.random.RandomState(ny * 10 + order)
+    b = dict(x_min=-180.0, x_max=180.0, y_min=-90.0, y_max=90.0)
+    cases = [((ny, nx), 0, False), ((3, nx), 0, False),
+             ((3, nx), ny - 3, False), ((3, nx), 1, False),
+             ((5, 11), 0, True), ((ny * nx,), 0, False),
+             ((2, 3, 4), 1, False)]
+    fields = torch.tensor(rng.randn(4, ny, nx), dtype=dtype)
+    coeffs = torch.tensor(rng.randn(4, ny, nx), dtype=dtype)
+    for shape, row_offset, with_homes in cases:
+        px = torch.tensor(rng.uniform(-400, 400, shape), dtype=dtype)
+        py = torch.tensor(rng.uniform(-100, 100, shape), dtype=dtype)
+        fx, fy = px.reshape(-1), py.reshape(-1)
+        fx[::7], fx[3::11], fx[5::13] = float("nan"), float("inf"), 1e30
+        fy[2::9], fy[4::17] = float("nan"), -1e30
+        kw = dict(order=order, row_offset=row_offset, **b)
+        if with_homes:
+            kw["home_rows"] = torch.tensor(
+                rng.randint(0, ny, (shape[0], 1)))
+        got = TI.interp_at_parcels_multi(fields, coeffs, px, py, **kw)
+        want = _per_tap_multi(fields, coeffs, px, py, **kw)
+        assert got.shape == want.shape and got.is_contiguous()
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), (shape, row_offset)
+        assert torch.equal(got[~nan], want[~nan]), (shape, row_offset)
