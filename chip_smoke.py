@@ -40,7 +40,10 @@ card twice); phase 10 the latitude-block pipeline's
 blocks) and ``ftle_sharded`` (4 blocks, with and without ``sigma``) on a
 mesh of the card repeated, each identical to the whole-grid run, and both
 on the windowed route (``engine="blockspec"``, 2 and 4 blocks); phase 11
-the port's examples (``--quick``), ``entry()`` and ``dryrun_multichip(4)``.
+the port's examples (``--quick``), ``entry()`` and ``dryrun_multichip(4)``;
+phase 12 the port's benchmark entry point (``bench.main``, ``--engine
+auto`` and ``--engine blockspec``: fields/s by CUDA events and its
+numerics record, each record printed on a line of its own).
 Phase 3c also holds ``settls_step`` on blocks with their home rows against
 its plain version and the whole-grid launch's rows, and phase 6 times the
 step as 4 blocks; phase 3b holds a block of the windowed route and the
@@ -51,12 +54,14 @@ before the last is the kernel record ``{"kernels": [{"name", "route",
 "bound_ms", "bound_by", "library_ms", "device_us_per_launch",
 "empty_launch_us", "launches_new_paths"}]}`` (one entry per TPU kernel
 replaced; ``launches_new_paths``: its launches on each path added by the
-windowed blocks, ``dma`` and the examples, each counted from 0; times:
+windowed blocks, ``dma``, the examples and the bench's timed calls, each
+counted from 0; times:
 medians of CUDA-event trials; ``device_us_per_launch``: from
 ``torch.profiler``, null where the profiler saw none of the kernel's
 launches; ``empty_launch_us``: an empty launch through
 the pole ladder's wrapper path in the same run; ``settls_step``'s launches
-summed over phases 4, 8, 8b, 9, 10 and 11, K1's from the per-group loop of
+summed over phases 4, 8, 8b, 9, 10, 11 and 12 (the bench's timed
+calls), K1's from the per-group loop of
 phase 4, the routed gather's (its two kernels) and the ladder's from phase
 4b, each counted from 0)
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -74,6 +79,7 @@ LCS.py:142-225, tools.py:11-267).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -94,7 +100,6 @@ FOLD_TOL = 2e-6          # rtol = atol, tests_tpu/test_device_parity.py:138
 LOG_FTLE_P99_BOUND = 1.5e-3
 POSITION_F64_ATOL = 1e-9
 REPS = 3
-TRIALS = 7               # CUDA-event trials per timed launch group
 KERNEL_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/spline_gather.cu"
 KERNEL_REPLACES = "lagrangiancoherence_tpu/ops/pallas_interp.py:793"
 STEP_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/settls_step.cu"
@@ -177,17 +182,6 @@ def bound(nbytes, ops):
 # ---------------------------------------------------------------------------
 # Inputs, made from closed forms (no random state)
 # ---------------------------------------------------------------------------
-
-def bench_winds(lats, lons, nt):
-    """bench.py:62-67: a 25 m/s jet with planetary waves, (nt, ny, nx) f64."""
-    LON, LAT = np.meshgrid(np.deg2rad(lons), np.deg2rad(lats))
-    base_u = 25.0 * np.cos(LAT) + 3.0 * np.cos(3 * LON) * np.sin(2 * LAT)
-    base_v = 3.0 * np.sin(3 * LON) * np.cos(2 * LAT)
-    t = np.arange(nt)[:, None, None]
-    u = base_u[None] * (1.0 + 0.05 * np.sin(2 * np.pi * t / nt))
-    v = base_v[None] * (1.0 + 0.05 * np.cos(2 * np.pi * t / nt))
-    return u, v
-
 
 def flagship_positions(grid):
     """tests_tpu/test_device_parity.py:41-55 in float32 numpy: midlatitude
@@ -332,25 +326,6 @@ def compare_launches(runs, dtype, device):
     return res
 
 
-def event_ms(fn, n):
-    """CUDA-event milliseconds per call of ``fn``, after a warm-up call:
-    one value per trial of ``n`` calls, TRIALS trials."""
-    import torch
-    fn()
-    out = []
-    for _ in range(TRIALS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(end) / n)
-    return out
-
-
 def device_us(fn, n, match, tries=3):
     """``torch.profiler`` over ``n`` calls of ``fn`` (after a warm-up): the
     mean device microseconds of one launch of the kernels whose name
@@ -406,6 +381,7 @@ def time_launches(runs, dtype, device, reps, plain_reps):
     kernel name, for the kernels and for the plain versions, and under
     ``name, "device"`` the kernels' ``device_us``."""
     import torch
+    from lagrangiancoherence_tpu_torch.bench import event_ms
     bufs = [(name, torch.zeros(shape, dtype=dtype, device=device),
              # the main path asks the ladder for no levels
              None if name == "pole_ladder_gather" else torch.zeros(
@@ -1158,31 +1134,14 @@ def series_winds(grid, nt=SERIES_LEVELS):
     """Phase 9's record: ``bench_winds`` over ``nt`` six-hourly levels as
     host ``Field``s, and the same winds in float32 numpy."""
     from lagrangiancoherence_tpu_torch import Field
-    u, v = bench_winds(grid.lats, grid.lons, nt)
+    from lagrangiancoherence_tpu_torch.bench import bench_winds
+    u, v = bench_winds(grid, nt, np.float64)
     times = np.datetime64("2020-01-01", "ns") \
         + np.arange(nt) * np.timedelta64(6, "h")
     coords = {"time": times, "latitude": grid.lats, "longitude": grid.lons}
     return (Field(u, DIMS3, coords, name="u"),
             Field(v, DIMS3, coords, name="v"), u.astype(np.float32),
             v.astype(np.float32), times)
-
-
-def event_call_ms(fn, trials=REPS):
-    """CUDA-event milliseconds of single calls of ``fn`` (each ending on the
-    host), after a warm-up call: one value per trial."""
-    import torch
-    fn()
-    out = []
-    for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(end))
-    return out
 
 
 def phase_series(dev, card, check, grid):
@@ -1192,6 +1151,7 @@ def phase_series(dev, card, check, grid):
     card twice.  Returns its ``settls_step`` launches."""
     import torch
     from lagrangiancoherence_tpu_torch import ftle_pipeline, ftle_series
+    from lagrangiancoherence_tpu_torch.bench import event_ms
     from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
     from lagrangiancoherence_tpu_torch.parallel.mesh import batch_mesh
     from lagrangiancoherence_tpu_torch.runners import _prep_record, _upload
@@ -1239,15 +1199,16 @@ def phase_series(dev, card, check, grid):
           f"{same}, settls_step launches {cuda_settls.LAUNCHES} == "
           f"{expected}")
 
-    series_ms = event_call_ms(lambda: ftle_series(U, V, DT, device=dev, **kw))
-    one_ms = event_call_ms(lambda: ftle_pipeline(
+    series_ms = event_ms(lambda: ftle_series(U, V, DT, device=dev, **kw), 1,
+                         REPS)
+    one_ms = event_ms(lambda: ftle_pipeline(
         ud[:NT], vd[:NT], DT, grid, settls_order=SETTLS_ORDER,
-        interp_order=ORDER).cpu())
+        interp_order=ORDER).cpu(), 1, REPS)
 
     def prep_upload():
         ur, vr = _prep_record(U, V, "time")[:2]
         return _upload(ur, vr, None, dev)[0].sum().item()
-    prep_ms = event_call_ms(prep_upload)
+    prep_ms = event_ms(prep_upload, 1, REPS)
     med, lo, hi = spread(series_ms)
     per = [t / len(starts) for t in (med, lo, hi)]
     log(f"series: {med:.3f} ms [{lo:.3f}, {hi:.3f}] a series of "
@@ -1259,14 +1220,6 @@ def phase_series(dev, card, check, grid):
         f"(CUDA events, median [min, max] of {REPS} after a warm-up) "
         f"[{card}]")
     return launches
-
-
-def kernel_counts():
-    """Every launch counter of the port, by kernel."""
-    from lagrangiancoherence_tpu_torch.ops import (cuda_interp, cuda_settls,
-                                                   cuda_window)
-    return dict(cuda_window.LAUNCHES, settls_step=cuda_settls.LAUNCHES,
-                spline_gather=cuda_interp.LAUNCHES)
 
 
 def reset_counts():
@@ -1286,6 +1239,7 @@ def phase_blocks(dev, card, check, grid, u32, v32, by_path):
     import torch
     from lagrangiancoherence_tpu_torch import (ftle_pipeline, ftle_sharded,
                                               parcel_propagation_sharded)
+    from lagrangiancoherence_tpu_torch.bench import event_ms, launch_counts
     from lagrangiancoherence_tpu_torch.models.settls import \
         parcel_propagation_core
     from lagrangiancoherence_tpu_torch.parallel.mesh import parcel_mesh
@@ -1303,7 +1257,7 @@ def phase_blocks(dev, card, check, grid, u32, v32, by_path):
         reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        counts = kernel_counts()
+        counts = launch_counts()
         total += counts["settls_step"]
         return out, counts
 
@@ -1364,22 +1318,22 @@ def phase_blocks(dev, card, check, grid, u32, v32, by_path):
                   f"grid's auto route={same}; overflow 0x{int(ovf):x}; "
                   f"launches {json.dumps(on)} == {per_block} x {n} each, "
                   f"settls_step {c['settls_step']}, K1 {c['spline_gather']}")
-    times = {label: event_call_ms(lambda: ftle_sharded(
-        u32, v32, DT, grid, meshes[label][0], **kw).cpu())
+    times = {label: event_ms(lambda: ftle_sharded(
+        u32, v32, DT, grid, meshes[label][0], **kw).cpu(), 1, REPS)
         for label in ("n=1", "n=4")}
-    times["ftle_pipeline"] = event_call_ms(lambda: ftle_pipeline(
-        u32, v32, DT, grid, **kw).cpu())
+    times["ftle_pipeline"] = event_ms(lambda: ftle_pipeline(
+        u32, v32, DT, grid, **kw).cpu(), 1, REPS)
     log("ms a field (CUDA events, median [min, max] of "
         f"{REPS} after a warm-up, field to the host): " + "; ".join(
             f"{k} {spread(t)[0]:.3f} [{min(t):.3f}, {max(t):.3f}]"
             for k, t in times.items()) + f" [{card}]")
-    times = {f"blockspec n={n}": event_call_ms(lambda: ftle_sharded(
+    times = {f"blockspec n={n}": event_ms(lambda: ftle_sharded(
         u32, v32, DT, grid, parcel_mesh(devices=[dev] * n),
-        engine="blockspec", **kw).cpu()) for n in (1, 2, 4)}
-    times["blockspec whole grid"] = event_call_ms(lambda: ftle_pipeline(
-        u32, v32, DT, grid, engine="blockspec", **kw).cpu())
-    times["direct whole grid"] = event_call_ms(lambda: ftle_pipeline(
-        u32, v32, DT, grid, **kw).cpu())
+        engine="blockspec", **kw).cpu(), 1, REPS) for n in (1, 2, 4)}
+    times["blockspec whole grid"] = event_ms(lambda: ftle_pipeline(
+        u32, v32, DT, grid, engine="blockspec", **kw).cpu(), 1, REPS)
+    times["direct whole grid"] = event_ms(lambda: ftle_pipeline(
+        u32, v32, DT, grid, **kw).cpu(), 1, REPS)
     log("windowed route on blocks, ms a field (CUDA events, median [min, "
         f"max] of {REPS} after a warm-up, field to the host): " + "; ".join(
             f"{k} {spread(t)[0]:.3f} [{min(t):.3f}, {max(t):.3f}]"
@@ -1398,6 +1352,7 @@ def phase_examples(dev, card, check, by_path):
     ``entry()`` and ``dryrun_multichip(4)`` over the card repeated.
     Returns their ``settls_step`` launches."""
     import torch
+    from lagrangiancoherence_tpu_torch.bench import launch_counts
     from lagrangiancoherence_tpu_torch.entry import dryrun_multichip, entry
     from lagrangiancoherence_tpu_torch.examples import (area_of_influence,
                                                        ideal_vortex)
@@ -1413,7 +1368,7 @@ def phase_examples(dev, card, check, by_path):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        by_path[f"phase 11 {label}"] = c = kernel_counts()
+        by_path[f"phase 11 {label}"] = c = launch_counts()
         total += c["settls_step"]
         others = sum(v for k, v in c.items() if k != "settls_step")
         log(f"{label}: {wall:.3f} ms wall (its first call; the facade's "
@@ -1464,6 +1419,73 @@ def phase_examples(dev, card, check, by_path):
     return total
 
 
+def phase_bench(card, check, want_sha, by_path):
+    """Phase 12: the port's benchmark entry point ``bench.main`` (``python
+    -m lagrangiancoherence_tpu_torch.bench``) on the card, ``--engine
+    auto`` and ``--engine blockspec`` (2 calls a trial: a windowed field
+    costs ~15 direct ones).  The bench raises on its own checks; here each
+    record must show overflow 0, every kernel within GATHER_F32_ATOL of its
+    plain version, fields/s > 0, a field identical to phase 4's
+    ``ftle_pipeline`` on the same winds (``want_sha``: the SHA-256 of its
+    bytes), the route's launches a field, the timed calls' launches as that
+    times the fields, and besides them the numerics record's: the 32 steps
+    to its departure points and one comparison launch a kernel.  Prints
+    each record on a line of its own; returns the ``settls_step`` launches
+    of the timed calls."""
+    import contextlib
+    import io
+
+    import torch
+    from lagrangiancoherence_tpu_torch import bench
+    log(f"== phase 12: the benchmark entry point (bench.main) on the card "
+        f"[{card}]")
+    record_launches = {"settls_step": NT, "spline_gather": 1,
+                       "tier_window_gather.route": 1,
+                       "tier_window_gather.gather": 1,
+                       "pole_ladder_gather": 1, "empty_launch": 0}
+    routes = {"auto": ("20", {"settls_step": NT - 1}),
+              "blockspec": ("2", BLOCKSPEC_LAUNCHES)}
+    total = 0
+    for engine, (reps, per_field) in routes.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["--engine", engine, "--reps", reps])
+        torch.cuda.synchronize()
+        counts = bench.launch_counts()
+        lines = out.getvalue().splitlines()
+        for line in lines[:-1]:
+            log(f"  bench --engine {engine}: {line}")
+        log(lines[-1])
+        rec = json.loads(lines[-1])
+        errs = rec["kernel_vs_plain_maxabs"]
+        check(rc == 0 and rec["overflow"] == 0 and rec["value"] > 0
+              and set(errs) == {"settls_step", "spline_gather",
+                                "tier_window_gather", "pole_ladder_gather"}
+              and all(e <= GATHER_F32_ATOL for e in errs.values()),
+              f"bench --engine {engine}: rc {rc}, overflow {rec['overflow']}"
+              f", {rec['value']:.4f} fields/s, kernel vs plain "
+              f"{json.dumps(errs)} (<= {GATHER_F32_ATOL:g})")
+        check(rec["ftle_sha256"] == want_sha,
+              f"bench --engine {engine}: its field identical to phase 4's "
+              f"ftle_pipeline on the same winds (SHA-256 "
+              f"{rec['ftle_sha256'][:16]}.. == {want_sha[:16]}..)")
+        launched = {k: n for k, n in rec["launches_per_field"].items() if n}
+        timed = all(rec["launches"][k] == n * rec["fields"]
+                    for k, n in rec["launches_per_field"].items())
+        extra = {k: counts[k] - rec["launches"][k] for k in counts}
+        check(launched == per_field and timed and extra == record_launches,
+              f"bench --engine {engine}: launches a field "
+              f"{json.dumps(launched)} == {json.dumps(per_field)}; over "
+              f"{rec['fields']} fields {json.dumps(rec['launches'])}; the "
+              f"numerics record's {json.dumps(extra)} == "
+              f"{json.dumps(record_launches)}")
+        by_path[f"phase 12 bench --engine {engine}"] = rec["launches"]
+        total += rec["launches"]["settls_step"]
+    return total
+
+
 def log(msg=""):
     print(msg, flush=True)
 
@@ -1476,6 +1498,7 @@ def main() -> int:
         return 2
 
     from lagrangiancoherence_tpu_torch import Grid, ftle_pipeline
+    from lagrangiancoherence_tpu_torch.bench import bench_winds, event_ms
     from lagrangiancoherence_tpu_torch.grid import global_quarter_degree_grid
     from lagrangiancoherence_tpu_torch.models.settls import (
         _shard_sortable_groups, _sort_bands, _sort_bin_bands,
@@ -1541,7 +1564,7 @@ def main() -> int:
     ny, nx = grid.shape
     bounds = dict(x_min=grid.x_min, x_max=grid.x_max, y_min=grid.y_min,
                   y_max=grid.y_max)
-    u64, v64 = bench_winds(grid.lats, grid.lons, NT)
+    u64, v64 = bench_winds(grid, NT, np.float64)
     u32 = torch.tensor(u64.astype(np.float32), device=dev)
     v32 = torch.tensor(v64.astype(np.float32), device=dev)
     pxn, pyn = flagship_positions(grid)
@@ -1833,6 +1856,7 @@ def main() -> int:
     check(int(overflow) == 0, f"overflow {int(overflow)} == 0")
     check(norm.shape == (ny, nx) and finite,
           f"shape {tuple(norm.shape)}, rows [2:-2] finite={finite}")
+    norm_sha = hashlib.sha256(norm.cpu().numpy().tobytes()).hexdigest()
     # the per-group K1 loop that the fused step replaced, in the same call
     torch.cuda.synchronize()
     cuda_interp.LAUNCHES = 0
@@ -1948,7 +1972,7 @@ def main() -> int:
     lats1 = np.linspace(-90.0, 90.0, 181)
     lons1 = np.linspace(-180.0, 179.0, 360)
     grid1 = Grid(lats=lats1, lons=lons1, cyclic_x=True)
-    u1, v1 = bench_winds(lats1, lons1, 9)
+    u1, v1 = bench_winds(grid1, 9, np.float64)
     want1 = oracle_ftle(u1, v1, lats1, lons1, DT, settls_order=2,
                         interp_order=ORDER, cyclic_x=True)
     for engine in ("auto", "blockspec"):
@@ -2063,7 +2087,7 @@ def main() -> int:
         us, n = device_us(fn, 50, "settls_step_kernel")
         med, lo, hi = spread(t_ms)
         log(f"  settls_step {label}: {med:.4f} ms [{lo:.4f}, {hi:.4f}] a "
-            f"step (median [min, max] of {TRIALS} trials of 50); device "
+            f"step (median [min, max] of {len(t_ms)} trials of 50); device "
             f"{us_text(us)} a launch x {n:g}"
             + ("" if us is None else f" = {us * n:.2f} us") + f" [{card}]")
     del blocks4
@@ -2300,6 +2324,9 @@ def main() -> int:
 
     # -- 11. the examples, entry() and the multi-block dry run ----------------
     launches += phase_examples(dev, card, check, by_path)
+
+    # -- 12. the benchmark entry point ----------------------------------------
+    launches += phase_bench(card, check, norm_sha, by_path)
 
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")

@@ -71,7 +71,7 @@ SLICE_MODULES = ("api", "cli", "field", "convert", "devices", "ops.sht",
                  "parallel.halo", "parallel.pipeline", "utils.profiling",
                  "utils.debug", "testing", "testing.flows", "testing.oracle",
                  "examples", "examples.ideal_vortex",
-                 "examples.area_of_influence", "entry")
+                 "examples.area_of_influence", "entry", "bench")
 
 
 def test_slice_modules_import_no_jax_pandas_h5py():
@@ -192,14 +192,19 @@ def _chip_smoke():
 def test_chip_smoke_oracle_matches_package_oracle():
     """Phase 5 holds the card against the port's oracle
     (``lagrangiancoherence_tpu_torch.testing.oracle``; chip_smoke.py may not
-    import the JAX package), on ``bench_winds``: it agrees with the JAX
-    package's oracle, and chip_smoke.py keeps no copy of its own."""
+    import the JAX package), on the port's ``bench.bench_winds`` in float64:
+    it agrees with the JAX package's oracle, and chip_smoke.py keeps no copy
+    of the oracle, of the winds or of the bench's timer."""
+    from lagrangiancoherence_tpu_torch import Grid
+    from lagrangiancoherence_tpu_torch.bench import bench_winds
     from lagrangiancoherence_tpu_torch.testing import oracle as PO
     chip_smoke = _chip_smoke()
-    assert not hasattr(chip_smoke, "oracle_ftle")
+    for name in ("oracle_ftle", "bench_winds", "event_ms"):
+        assert not hasattr(chip_smoke, name), name
     lats = np.linspace(-90.0, 90.0, 19)
     lons = np.linspace(-180.0, 170.0, 36)
-    u, v = chip_smoke.bench_winds(lats, lons, 4)
+    u, v = bench_winds(Grid(lats=lats, lons=lons, cyclic_x=True), 4,
+                       np.float64)
     got = PO.oracle_ftle(u, v, lats, lons, -6 * 3600.0, settls_order=2,
                          interp_order=3, cyclic_x=True)
     want = O.oracle_ftle(u, v, lats, lons, -6 * 3600.0, settls_order=2,
