@@ -26,7 +26,11 @@ kernels per field, idle share).  Then
 it drives the user-facing paths through the fused step: phase 8 runs
 ``LCS(isglobal=True, truncation=20)`` (the CLI's defaults) on the flagship
 winds — regrid to the common 0.5-degree grid, T20 truncation, SETTLS-4, the
-float64 FTLE; a first and a second call timed by stage — and phase 8b the
+float64 FTLE; a first and a second call timed by stage — phase 8c the same
+facade with ``resample="12h"`` and ``parcel_propagation(return_traj=True)``
+on those winds labelled from 2300 by the port's CF decoder (NCEP's
+``"hours since 1800-1-1 00:00:0.0"``), outside datetime64[ns]'s range, with a
+resample alias pandas 3 removed refused before any launch — and phase 8b the
 area-of-influence
 workflow (LagrangianCoherence LCS/area_of_influence.py, as
 ``examples/area_of_influence.py`` runs it) at ERA5's 0.25 degrees: ``LCS``
@@ -60,7 +64,7 @@ medians of CUDA-event trials; ``device_us_per_launch``: from
 ``torch.profiler``, null where the profiler saw none of the kernel's
 launches; ``empty_launch_us``: an empty launch through
 the pole ladder's wrapper path in the same run; ``settls_step``'s launches
-summed over phases 4, 8, 8b, 9, 10, 11 and 12 (the bench's timed
+summed over phases 4, 8, 8c, 8b, 9, 10, 11 and 12 (the bench's timed
 calls), K1's from the per-group loop of
 phase 4, the routed gather's (its two kernels) and the ladder's from phase
 4b, each counted from 0)
@@ -832,7 +836,7 @@ def area_uncertain(ftle, ev, ridges, lats, lons, max_steps=128):
 def phase_facade(dev, card, check, sync, u64, v64, grid):
     """Phase 8: ``LCS(isglobal=True)`` at the CLI's defaults on the flagship
     winds, through the fused step.  Returns its launches in the facade's
-    run."""
+    run, and the winds regridded and truncated on the card."""
     import torch
     from lagrangiancoherence_tpu_torch import LCS, Field, parcel_propagation
     from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
@@ -915,6 +919,132 @@ def phase_facade(dev, card, check, sync, u64, v64, grid):
     log("facade stages, second call (ms): " + json.dumps(
         {k: round(v, 3) for k, v in clock.ms.items()})
         + f", wall {wall:.3f} ms [{card}]")
+    return launches, truncated
+
+
+# NCEP reanalysis' CF time unit, which numpy's own parser refuses; days
+# from its origin to the two records' starts and from 1970 to 2300, counted
+# by leap years (every 4th, less the centuries not divisible by 400)
+NCEP_UNITS = "hours since 1800-1-1 00:00:0.0"
+DAYS_1800_TO = {2300: 500 * 365 + 121, 2020: 220 * 365 + 53}
+DAYS_1970_2300 = 330 * 365 + 80
+
+
+def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
+    """Phase 8c: the facade on the flagship winds labelled in 2300, outside
+    datetime64[ns]'s 1678-2262, by the port's CF decoder from NCEP's unit
+    string: (a) ``LCS(resample="12h")`` runs through ``settls_step`` and
+    gives the FTLE of the same winds labelled from 2020, bit for bit; (b)
+    ``parcel_propagation(return_traj=True)`` on phase 8's truncated winds
+    carries the 2300 instants, computed here from integers; (c) a resample
+    alias pandas 3 removed ("3H") raises ``ValueError`` before any launch.
+    Returns its ``settls_step`` launches."""
+    from lagrangiancoherence_tpu_torch import LCS, Field, parcel_propagation
+    from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
+                                                   COMMON_GRID_LONS)
+    from lagrangiancoherence_tpu_torch.bench import launch_counts
+    from lagrangiancoherence_tpu_torch.utils.io import _decode_times
+    ny, nx = grid.shape
+    log(f"== phase 8c: LCS(resample='12h', isglobal=True) and "
+        f"parcel_propagation(return_traj=True) on the flagship winds "
+        f"({nx}x{ny}, T={NT}, SETTLS-{SETTLS_ORDER}) labelled from "
+        f"2300-01-01 by {NCEP_UNITS!r}, through settls_step [{card}]")
+    t_phase = time.perf_counter()
+
+    def seconds(labels):
+        """Whole seconds since 1970 of datetime64 labels, or None where a
+        label is not a whole second."""
+        s = labels.astype("datetime64[s]")
+        whole = bool((s.astype(labels.dtype) == labels).all())
+        return s.astype(np.int64).tolist() if whole else None
+
+    want = [DAYS_1970_2300 * 86400 + k * 6 * 3600 for k in range(NT)]
+    times = {yr: _decode_times(24.0 * days + 6.0 * np.arange(NT), NCEP_UNITS)
+             for yr, days in DAYS_1800_TO.items()}
+    check(seconds(times[2300]) == want, f"decoded labels: "
+          f"{times[2300][0]} .. {times[2300][-1]} ({times[2300].dtype}), "
+          f"the 2300 instants from integers")
+
+    def winds(yr):
+        coords = {"time": times[yr], "latitude": grid.lats,
+                  "longitude": grid.lons}
+        return Field(u64, DIMS3, coords, name="u"), \
+            Field(v64, DIMS3, coords, name="v")
+
+    def counted(fn):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, launch_counts(), (time.perf_counter() - t0) * 1e3
+
+    def others(c):
+        return sum(v for k, v in c.items() if k != "settls_step")
+
+    # (a) 33 six-hourly levels resample to 17 twelve-hourly ones: 16 steps
+    steps = (NT - 1) // 2
+    ftle, launches = {}, 0
+    for yr in (2300, 2020):
+        U, V = winds(yr)
+        ftle[yr], c, wall = counted(lambda: LCS(
+            timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
+            u=U, v=V, verbose=False, resample="12h", isglobal=True,
+            truncation=TRUNCATION))
+        launches += c["settls_step"]
+        log(f"LCS(resample='12h') labelled from {yr}: {wall:.3f} ms wall, "
+            f"launches {json.dumps(c)} [{card}]")
+        check(c["settls_step"] == steps and others(c) == 0,
+              f"{yr}: settls_step launches {c['settls_step']} == {steps}, "
+              f"other kernels {others(c)} == 0")
+    a, b = ftle[2300], ftle[2020]
+    inner = a.data[0, 5:-5]
+    check(a.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
+          and bool(np.isfinite(inner).all())
+          and np.array_equal(a.data, b.data, equal_nan=True),
+          f"FTLE labelled 2300: shape {a.shape}, rows [5:-5] finite, "
+          f"identical to the 2020 record's")
+    # backward: the field is stamped with the window's first label
+    check(seconds(np.asarray(a.coords["time"])) == want[:1],
+          f"FTLE label {a.coords['time'][0]} == 2300-01-01T00")
+
+    # (b) the trajectories on the truncated winds carry the 2300 labels,
+    # reversed by the backward step (quirk Q2)
+    ccoords = {"time": times[2300], "latitude": COMMON_GRID_LATS,
+               "longitude": COMMON_GRID_LONS}
+    Ut, Vt = (Field(x, DIMS3, ccoords) for x in truncated)
+    (tx, ty), c, wall = counted(lambda: parcel_propagation(
+        Ut, Vt, DT, SETTLS_order=SETTLS_ORDER, cyclic_xboundary=True,
+        verbose=False, return_traj=True, device=dev))
+    launches += c["settls_step"]
+    log(f"parcel_propagation(return_traj=True): {wall:.3f} ms wall, "
+        f"launches {json.dumps(c)} [{card}]")
+    check(c["settls_step"] == NT - 1 and others(c) == 0,
+          f"trajectories: settls_step launches {c['settls_step']} == "
+          f"{NT - 1}, other kernels {others(c)} == 0")
+    labels = np.asarray(tx.coords["time"])
+    check(seconds(labels) == want[::-1]
+          and np.array_equal(labels, ty.coords["time"])
+          and bool(np.isfinite(tx.data).all() and np.isfinite(ty.data).all()),
+          f"trajectories {tx.shape}: labels {labels[0]} .. {labels[-1]} == "
+          f"the 2300 instants reversed; positions finite")
+
+    # (c) an alias pandas 3 removed raises before any launch
+    U, V = winds(2300)
+    sync()
+    reset_counts()
+    try:
+        LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
+            u=U, v=V, verbose=False, resample="3H", isglobal=True,
+            truncation=TRUNCATION)
+        raised = "nothing"
+    except ValueError as e:
+        raised = f"ValueError: {e}"
+    c = launch_counts()
+    check(raised.startswith("ValueError") and sum(c.values()) == 0,
+          f"resample='3H' raised {raised!r}; launches {json.dumps(c)}")
+    log(f"phase 8c: {(time.perf_counter() - t_phase) * 1e3:.3f} ms wall "
+        f"[{card}]")
     return launches
 
 
@@ -2313,9 +2443,13 @@ def main() -> int:
         check(prof["kernels"] > 0, f"profile {route} sees device kernels: "
               f"{prof['kernels']}")
 
-    # -- 8. the LCS facade; 8b. the area-of-influence workflow ----------------
-    launches += phase_facade(dev, card, check, torch.cuda.synchronize, u64,
-                             v64, grid)
+    # -- 8. the LCS facade; 8c. labels from 2300; 8b. area of influence ------
+    n, truncated = phase_facade(dev, card, check, torch.cuda.synchronize,
+                                u64, v64, grid)
+    launches += n
+    launches += phase_labels(dev, card, check, torch.cuda.synchronize, u64,
+                             v64, grid, truncated)
+    del truncated
     launches += phase_area(dev, card, check, torch.cuda.synchronize)
 
     # -- 9. the series runner; 10. the latitude-block pipeline ----------------

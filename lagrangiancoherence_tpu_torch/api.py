@@ -24,7 +24,10 @@ the device of the tensors passed, else the CUDA card, which must exist; pass
 ``device="cpu"`` for the CPU; see ``devices.py``), and ``LCS`` takes
 ``kernel=`` as ``parcel_propagation`` does.  The SETTLS stage runs in
 ``torch.get_default_dtype()`` (JAX's x64 switch), the FTLE stage in float64.
-No module here imports pandas: time labels are numpy ``datetime64``.
+Time labels are numpy ``datetime64`` at the record's own resolution, as the
+JAX package's pandas keeps it (``utils/times.py``), so records outside
+1678-2262 keep their instants; pandas is imported only for a calendar
+``resample`` frequency ("MS", "W", ...).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from .models.settls import parcel_propagation_core
 from .ops.regrid import regrid_linear_nearest
 from .ops.sht import truncate as sht_truncate
 from .utils.logging import configure_verbosity, logger, timed_stage
+from .utils.times import as_labels, cast_labels
 
 __all__ = ["LCS", "parcel_propagation", "flowmap_gradient", "latlonsel",
            "create_arrays_list"]
@@ -89,29 +93,44 @@ def _extract_uv(ds, u, v, timedim: str) -> tuple[Field, Field]:
 
 
 # fixed-length pandas frequency aliases → numpy timedelta units
-_FIXED_FREQ = re.compile(r"^(\d*)(D|h|H|min|T|s|S|ms|L|us|U|ns|N)$")
-_FREQ_UNIT = {"D": "D", "h": "h", "H": "h", "min": "m", "T": "m", "s": "s",
-              "S": "s", "ms": "ms", "L": "ms", "us": "us", "U": "us",
-              "ns": "ns", "N": "ns"}
+_FIXED_FREQ = re.compile(r"^(\d*)(D|h|min|s|ms|us|ns)$")
+_FREQ_UNIT = {"D": "D", "h": "h", "min": "m", "s": "s", "ms": "ms",
+              "us": "us", "ns": "ns"}
+# the fixed-length aliases pandas 3 removed: JAX's resample raises on them
+_REMOVED_FREQ = re.compile(r"^\d*(H|T|S|L|U|N)$")
 
 
 def _resample_labels(times: np.ndarray, freq: str) -> np.ndarray:
-    """The labels of pandas ``Series.resample(freq).asfreq()`` as
-    ``datetime64[ns]``: bins anchored at the start of the first record's
-    day (pandas' default origin), from the bin holding the first time to
-    the bin holding the last.  Fixed-length frequencies ("3h", "30min",
-    "1D") are computed in numpy; calendar ones go through pandas, imported
-    only for them."""
-    times = np.asarray(times).astype("datetime64[ns]")
+    """The labels of pandas ``Series.resample(freq).asfreq()``: bins
+    anchored at the start of the first record's day (pandas' default
+    origin), from the bin holding the first time to the bin holding the
+    last.  Labels keep the record's resolution (at least seconds, as
+    pandas keeps it), made finer where the step needs it.  Fixed-length
+    frequencies ("3h", "30min", "1D") are computed in numpy; calendar ones
+    go through pandas, imported only for them; the aliases pandas 3
+    removed ("H", "T", "S", "L", "U", "N") raise ``ValueError``."""
+    if _REMOVED_FREQ.match(freq.strip()):
+        raise ValueError(
+            f"Invalid frequency: {freq}; pandas 3 removed the aliases H, T, "
+            f"S, L, U and N: use h, min, s, ms, us or ns")
+    times = as_labels(times)
     m = _FIXED_FREQ.match(freq.strip())
     if m is None:
-        import pandas as pd
+        try:
+            import pandas as pd
+        except ImportError as e:
+            raise ImportError(
+                f"resample={freq!r} is not a fixed-length frequency "
+                f"({', '.join(_FREQ_UNIT)}, with a count); calendar "
+                f"frequencies need pandas") from e
         return pd.Series(0.0, index=pd.to_datetime(times)).resample(
             freq).asfreq().index.values
-    step = np.timedelta64(int(m.group(1) or 1),
-                          _FREQ_UNIT[m.group(2)]).astype("timedelta64[ns]")
+    step = np.timedelta64(int(m.group(1) or 1), _FREQ_UNIT[m.group(2)])
+    unit = (times[:0] + step).dtype       # numpy's promotion of the units
+    times = cast_labels(times, unit)
+    step = step.astype(f"m8[{np.datetime_data(unit)[0]}]")
     t0, t1 = times.min(), times.max()
-    origin = t0.astype("datetime64[D]").astype("datetime64[ns]")
+    origin = cast_labels(t0.astype("datetime64[D]"), unit)
     first = origin + (t0 - origin) // step * step
     last = origin + (t1 - origin) // step * step
     return np.arange(first, last + step, step)
@@ -126,9 +145,11 @@ def _resample_linear(f: Field, freq: str, timedim: str) -> Field:
     ``times[0]``), so records that do not start on a bin edge align the way
     the reference's xarray resample does; labels outside the record's time
     span interpolate to NaN, matching scipy ``interp1d`` with
-    ``bounds_error=False`` underneath xarray."""
-    times = np.asarray(f.coords[timedim]).astype("datetime64[ns]")
+    ``bounds_error=False`` underneath xarray.  The weights come from the
+    labels' int64 counts at their own unit, as JAX forms them."""
+    times = as_labels(f.coords[timedim])
     new_times = _resample_labels(times, freq)
+    times = cast_labels(times, new_times.dtype)
     t_src = times.view("int64").astype(np.float64)
     t_dst = new_times.view("int64").astype(np.float64)
     ax = f.axis(timedim)
@@ -238,7 +259,7 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
         assert type(times[0]).__name__ != "Datetime360Day", (
             "Cannot return trajectories with time coordinates "
             "cftime.Datetime360Day.")
-        tcoord = np.asarray(times).astype("datetime64[ns]")
+        tcoord = as_labels(times)
         dims = (propdim, "latitude", "longitude")
         fx = Field(px, dims, {**coords2d, propdim: tcoord}, name="positions_x")
         fy = Field(py, dims, {**coords2d, propdim: tcoord}, name="positions_y")

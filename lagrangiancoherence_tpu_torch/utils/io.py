@@ -8,8 +8,10 @@ with ``to_netcdf`` (LagrangianCoherence LCS/LCS.py:254-262).  netCDF4 files
 recovered from netCDF dimension scales) and writes files that
 netCDF4/xarray can open (dimension scales attached, ``_FillValue``
 honoured).  h5py is imported inside the functions, and CF time units are
-decoded and encoded with numpy ``datetime64``, so importing this module
-needs neither h5py nor pandas.
+decoded and encoded with numpy ``datetime64`` (``utils/times.py``), so this
+module needs no pandas and imports no h5py until a file is read or written.
+Time labels keep their resolution, as the JAX package's pandas keeps it, so
+a record outside 1678-2262 decodes and encodes to its own instants.
 
 Writes are idempotent per timestamp — ``save_field(..., skip_if_exists=True)``
 is the failure-recovery contract SURVEY.md §5 calls for (retry the file),
@@ -22,6 +24,8 @@ import os
 import numpy as np
 
 from ..field import Field
+from .times import as_labels, isoformat
+from .times import decode_cf as _decode_times
 
 __all__ = ["open_dataset", "open_dataarray", "save_field", "save_dataset"]
 
@@ -34,21 +38,6 @@ def _require_h5py():
             "h5py is required for netCDF/HDF5 IO; install it or pass "
             "in-memory Fields instead of paths") from e
     return h5py
-
-
-def _decode_times(values: np.ndarray, units: str | None):
-    """CF time decode for the common 'X since Y' unit strings."""
-    if not units or " since " not in units:
-        return values
-    span, origin = units.split(" since ")
-    span = span.strip().lower()
-    step = {"seconds": "s", "minutes": "m", "hours": "h", "days": "D"}.get(span)
-    if step is None:
-        return values
-    origin = np.datetime64(origin.strip(), "ns")
-    ns = np.timedelta64(1, step) / np.timedelta64(1, "ns")
-    offsets = np.round(np.asarray(values, dtype=np.float64) * ns)
-    return origin + offsets.astype(np.int64).astype("timedelta64[ns]")
 
 
 def _var_dims(h5var, fallback_ndim: int) -> tuple[str, ...]:
@@ -121,12 +110,10 @@ def open_dataarray(path: str, name: str | None = None) -> Field:
 def _encode_times(vals: np.ndarray):
     """Encode datetime64 coords as CF 'seconds since' floats."""
     if np.issubdtype(np.asarray(vals).dtype, np.datetime64):
-        t = np.asarray(vals).astype("datetime64[ns]")
+        t = as_labels(vals)
         origin = t[0]
         sec = ((t - origin) / np.timedelta64(1, "s")).astype(np.float64)
-        whole = origin == origin.astype("datetime64[s]")
-        stamp = np.datetime_as_string(origin, unit="s" if whole else "ns")
-        return sec, f"seconds since {stamp.replace('T', ' ')}"
+        return sec, f"seconds since {isoformat(origin)}"
     return np.asarray(vals), None
 
 

@@ -156,6 +156,30 @@ def test_pole_rows_far_out_and_nan_positions(order):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL, equal_nan=True)
 
 
+def test_order0_tie_matches_the_oracle():
+    """A 29-row grid over 10-80 degrees scales row 14 (45 degrees) to the
+    Q4 index 29 * 35 / 70 = 14.5, an exact tie of the order-0 tap
+    floor(f + 0.5): the port, eager JAX and scipy take row 15 there.  The
+    reference here is the scipy oracle, not JAX's jitted path: under jit
+    the Q4 scaling comes out as 14.499999999999998 and the tap takes row
+    14 (ROADMAP.md, "Known in the reference").  This pins the port to the
+    oracle, so that no change moves it toward the jitted value."""
+    from lagrangiancoherence_tpu_torch.testing.oracle import \
+        oracle_map_coordinates
+    lats = np.linspace(10.0, 80.0, 29)
+    lons = np.linspace(-180.0, 180.0 - 360.0 / 40, 40)
+    field = np.random.RandomState(29).randn(29, 40)
+    px, py = np.meshgrid(lons, lats)
+    want = oracle_map_coordinates(field, lats, lons, px, py, order=0)
+    b = _bounds(lats, lons, 0)
+    got = TI.interp_at_parcels(torch.tensor(field), torch.tensor(field),
+                               torch.tensor(px), torch.tensor(py),
+                               **b).numpy()
+    assert 29 * (lats[14] - lats[0]) / 70 == 14.5
+    np.testing.assert_array_equal(got[14], want[14])
+    np.testing.assert_array_equal(got, want)
+
+
 def test_cuda_wrapper_on_cpu_is_the_plain_version():
     """On CPU tensors the K1 wrapper windows the resident (T, 2, ny, nx)
     stacks by f0/nf and evaluates the plain version: no launch, flag 0."""

@@ -67,8 +67,9 @@ print("BAD", bad)
 SLICE_MODULES = ("api", "cli", "field", "convert", "devices", "ops.sht",
                  "ops.regrid", "ops.stencil", "ops.morphology", "ops.idw",
                  "models.ridges", "models.area", "models.ridge_filter",
-                 "utils.io", "utils.logging", "runners", "parallel.mesh",
-                 "parallel.halo", "parallel.pipeline", "utils.profiling",
+                 "utils.io", "utils.times", "utils.logging", "runners",
+                 "parallel.mesh", "parallel.halo", "parallel.pipeline",
+                 "utils.profiling",
                  "utils.debug", "testing", "testing.flows", "testing.oracle",
                  "examples", "examples.ideal_vortex",
                  "examples.area_of_influence", "entry", "bench")
