@@ -33,13 +33,13 @@ light):
   ``FTLEPipeline``
 - ``Grid`` (grid)
 
-Beside them, ``utils/profiling.py`` (``trace``, ``StageTimer``,
-``device_memory_stats``), ``utils/debug.py`` (``checked_ftle``,
-``nan_debug``), ``testing/`` (the analytic flows and the scipy oracle),
-``examples/`` (``python -m lagrangiancoherence_tpu_torch.examples.
-ideal_vortex``, ``.area_of_influence``) and ``entry.py`` (``entry``,
-``dryrun_multichip``: the counterpart of the JAX package's
-``__graft_entry__.py``).
+Beside them, ``utils/profiling.py`` (``trace``, ``device_memory_stats``),
+``utils/logging.py`` (``timed_stage``, the port's spans),
+``utils/debug.py`` (``checked_ftle``, ``nan_debug``), ``testing/`` (the
+analytic flows and the scipy oracle), ``examples/`` (``python -m
+lagrangiancoherence_tpu_torch.examples.ideal_vortex``,
+``.area_of_influence``) and ``entry.py`` (``entry``, ``dryrun_multichip``:
+the counterpart of the JAX package's ``__graft_entry__.py``).
 """
 from __future__ import annotations
 

@@ -60,6 +60,9 @@ def create_arrays_list(field, groupdim: str = "points"):
             for i in range(field.shape[ax])]
 
 
+# the span of each ascending sort of a record's coordinates on the host
+SORT_SPAN = "Sort to ascending coordinates"
+
 COMMON_GRID_LATS = np.linspace(-89.75, 89.75, 180 * 2)
 COMMON_GRID_LONS = np.linspace(-180, 179.5, 360 * 2 + 1)
 
@@ -214,8 +217,9 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
     """
     configure_verbosity(verbose)
     device = resolve_device(device)
-    U = as_field(U).sortby("longitude").sortby("latitude")
-    V = as_field(V).sortby("longitude").sortby("latitude")
+    with timed_stage(SORT_SPAN):
+        U = as_field(U).sortby("longitude").sortby("latitude")
+        V = as_field(V).sortby("longitude").sortby("latitude")
     order = (propdim, "latitude", "longitude")
     U = U.transpose(*order)
     V = V.transpose(*order)
@@ -327,92 +331,97 @@ class LCS:
                  interp_to_common_grid: bool = True,
                  traj_interp_order: int = 3, truncation: int = 20):
         configure_verbosity(verbose)
-        timestep = self.timestep
-        timedim = self.timedim
+        with timed_stage("LCS call"):
+            timestep = self.timestep
+            timedim = self.timedim
 
-        u, v = _extract_uv(ds, u, v, timedim)
+            u, v = _extract_uv(ds, u, v, timedim)
 
-        if isinstance(resample, str):
-            u = _resample_linear(u, resample, timedim)
-            v = _resample_linear(v, resample, timedim)
-            tvals = u.coords[timedim]
-            timestep = float(np.sign(timestep)) * float(
-                (tvals[1] - tvals[0]) / np.timedelta64(1, "s"))
+            if isinstance(resample, str):
+                with timed_stage("Resample in time"):
+                    u = _resample_linear(u, resample, timedim)
+                    v = _resample_linear(v, resample, timedim)
+                    tvals = u.coords[timedim]
+                    timestep = float(np.sign(timestep)) * float(
+                        (tvals[1] - tvals[0]) / np.timedelta64(1, "s"))
 
-        u = u.sortby("latitude").sortby("longitude")
-        v = v.sortby("latitude").sortby("longitude")
+            with timed_stage(SORT_SPAN):
+                u = u.sortby("latitude").sortby("longitude")
+                v = v.sortby("latitude").sortby("longitude")
 
-        if isglobal:
-            if interp_to_common_grid:
-                with timed_stage("Regrid to common global grid"):
-                    u = self._to_common_grid(u, timedim, self.device)
-                    v = self._to_common_grid(v, timedim, self.device)
-            if truncation is not None:
-                with timed_stage(f"Spectral truncation T{truncation}"):
-                    lats = u.coords["latitude"]
-                    u = u.copy(data=sht_truncate(
-                        u.data, lats, truncation, device=self.device
-                    ).cpu().numpy())
-                    v = v.copy(data=sht_truncate(
-                        v.data, lats, truncation, device=self.device
-                    ).cpu().numpy())
-            cyclic_xboundary = True
-            self.subdomain = None
-        else:
-            cyclic_xboundary = False
+            if isglobal:
+                if interp_to_common_grid:
+                    with timed_stage("Regrid to common global grid"):
+                        u = self._to_common_grid(u, timedim, self.device)
+                        v = self._to_common_grid(v, timedim, self.device)
+                if truncation is not None:
+                    with timed_stage(f"Spectral truncation T{truncation}"):
+                        lats = u.coords["latitude"]
+                        u = u.copy(data=sht_truncate(
+                            u.data, lats, truncation, device=self.device
+                        ).cpu().numpy())
+                        v = v.copy(data=sht_truncate(
+                            v.data, lats, truncation, device=self.device
+                        ).cpu().numpy())
+                cyclic_xboundary = True
+                self.subdomain = None
+            else:
+                cyclic_xboundary = False
 
-        if s is None:
-            # The reference computes-and-prints an unused smoothing factor
-            # (LagrangianCoherence LCS/LCS.py:124-126, SURVEY.md Q7); it is
-            # logged at debug level and nothing consumes it.
-            first = u.isel({timedim: 0})
-            s = int(10 * first.data.size * first.std())
-            logger.debug("legacy smoothing factor s = %s (unused)", s)
+            if s is None:
+                # The reference computes-and-prints an unused smoothing
+                # factor (LagrangianCoherence LCS/LCS.py:124-126, SURVEY.md
+                # Q7); it is logged at debug level and nothing consumes it.
+                first = u.isel({timedim: 0})
+                s = int(10 * first.data.size * first.std())
+                logger.debug("legacy smoothing factor s = %s (unused)", s)
 
-        x_departure, y_departure = parcel_propagation(
-            u, v, timestep, propdim=timedim, verbose=verbose,
-            SETTLS_order=self.SETTLS_order,
-            cyclic_xboundary=cyclic_xboundary, return_traj=return_traj,
-            interp_order=traj_interp_order, copy=True, kernel=self.kernel,
-            device=self.device)
+            x_departure, y_departure = parcel_propagation(
+                u, v, timestep, propdim=timedim, verbose=verbose,
+                SETTLS_order=self.SETTLS_order,
+                cyclic_xboundary=cyclic_xboundary, return_traj=return_traj,
+                interp_order=traj_interp_order, copy=True, kernel=self.kernel,
+                device=self.device)
 
-        if return_traj:
-            x_trajs, y_trajs = x_departure, y_departure
-            x_departure = x_trajs.isel({timedim: -1})
-            y_departure = y_trajs.isel({timedim: -1})
+            if return_traj:
+                x_trajs, y_trajs = x_departure, y_departure
+                x_departure = x_trajs.isel({timedim: -1})
+                y_departure = y_trajs.isel({timedim: -1})
 
-        with timed_stage("Deformation tensor + eigenvalues"):
-            lats = x_departure.coords["latitude"]
-            lons = x_departure.coords["longitude"]
-            grid = Grid(lats=lats, lons=lons)
-            norm = ftle_from_departures(
-                on_device(x_departure.data, self.device, torch.float64),
-                on_device(y_departure.data, self.device, torch.float64),
-                grid, sigma=self.gauss_sigma,
-                compat=self.compat).cpu().numpy()
+            with timed_stage("Deformation tensor + eigenvalues"):
+                lats = x_departure.coords["latitude"]
+                lons = x_departure.coords["longitude"]
+                grid = Grid(lats=lats, lons=lons)
+                norm = ftle_from_departures(
+                    on_device(x_departure.data, self.device, torch.float64),
+                    on_device(y_departure.data, self.device, torch.float64),
+                    grid, sigma=self.gauss_sigma,
+                    compat=self.compat).cpu().numpy()
 
-        times = u.coords[timedim]
-        timestamp = times[-1] if np.sign(timestep) == 1 else times[0]
-        eigenvalues = Field(
-            norm, ("latitude", "longitude"),
-            {"latitude": lats, "longitude": lons}, name="ftle")
-        if isinstance(self.subdomain, dict):
-            # The reference computes the gradient on the FULL field and crops
-            # the tensor afterwards (LagrangianCoherence LCS/LCS.py:142-144),
-            # so subdomain-interior points keep centred stencils fed by data
-            # outside the crop.  The norm is pointwise, so cropping the norm
-            # here is exactly equivalent to cropping the tensor there.
-            # Departure points are returned uncropped, as in the reference.
-            eigenvalues = latlonsel(eigenvalues, **self.subdomain)
-        eigenvalues = eigenvalues.expand_dims(timedim, coord=timestamp)
+            times = u.coords[timedim]
+            timestamp = times[-1] if np.sign(timestep) == 1 else times[0]
+            eigenvalues = Field(
+                norm, ("latitude", "longitude"),
+                {"latitude": lats, "longitude": lons}, name="ftle")
+            if isinstance(self.subdomain, dict):
+                # The reference computes the gradient on the FULL field and
+                # crops the tensor afterwards (LagrangianCoherence
+                # LCS/LCS.py:142-144), so subdomain-interior points keep
+                # centred stencils fed by data outside the crop.  The norm is
+                # pointwise, so cropping the norm here is exactly equivalent
+                # to cropping the tensor there.  Departure points are
+                # returned uncropped, as in the reference.
+                eigenvalues = latlonsel(eigenvalues, **self.subdomain)
+            eigenvalues = eigenvalues.expand_dims(timedim, coord=timestamp)
 
-        if self.return_dpts and return_traj:
-            return eigenvalues, x_departure, y_departure, x_trajs, y_trajs
-        elif self.return_dpts:
-            return eigenvalues, x_departure, y_departure
-        elif return_traj:
-            return eigenvalues, x_trajs, y_trajs
-        return eigenvalues
+            if self.return_dpts and return_traj:
+                return (eigenvalues, x_departure, y_departure, x_trajs,
+                        y_trajs)
+            elif self.return_dpts:
+                return eigenvalues, x_departure, y_departure
+            elif return_traj:
+                return eigenvalues, x_trajs, y_trajs
+            return eigenvalues
 
     @staticmethod
     def _to_common_grid(f: Field, timedim: str, device=None) -> Field:

@@ -9,6 +9,7 @@ caller that computes many fields on one grid builds it once;
 """
 from __future__ import annotations
 
+import logging
 from collections.abc import Mapping
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from ..devices import resolve_device
+from ..utils.logging import timed_stage
 from .ftle import flowmap_gradient, ftle_norm
 from .settls import (_as_tensor, grid_state, parcel_propagation_core,
                      resolve_engine, resolve_kernel)
@@ -57,8 +59,9 @@ class FTLEPipeline(nn.Module):
         self.kernel = kernel
         self.engine = engine
         self.rebin = rebin
-        for name, t in grid_state(grid, interp_order, dtype=dtype,
-                                  device=device).items():
+        with timed_stage("Grid state", logging.DEBUG):
+            state = grid_state(grid, interp_order, dtype=dtype, device=device)
+        for name, t in state.items():
             self.register_buffer(name, t)
 
     def load_numpy_state(self, arrays: Mapping[str, np.ndarray]) -> None:
@@ -79,16 +82,19 @@ class FTLEPipeline(nn.Module):
                 buf.copy_(torch.tensor(a, dtype=buf.dtype))
 
     def forward(self, u, v, timestep, return_overflow: bool = False):
-        state = dict(self.named_buffers())
-        device, dtype = state["px0"].device, state["px0"].dtype
-        u, v = _as_tensor(u, device, dtype), _as_tensor(v, device, dtype)
-        px, py, overflow = parcel_propagation_core(
-            u, v, timestep, self.grid, settls_order=self.settls_order,
-            interp_order=self.interp_order, kernel=self.kernel,
-            engine=self.engine, rebin=self.rebin, return_overflow=True,
-            device=device, state=state)
-        norm = ftle_norm(flowmap_gradient(px, py, self.grid, sigma=self.sigma),
-                         compat=self.compat)
+        with timed_stage("FTLE field", logging.DEBUG):
+            state = dict(self.named_buffers())
+            device, dtype = state["px0"].device, state["px0"].dtype
+            u, v = _as_tensor(u, device, dtype), _as_tensor(v, device, dtype)
+            px, py, overflow = parcel_propagation_core(
+                u, v, timestep, self.grid, settls_order=self.settls_order,
+                interp_order=self.interp_order, kernel=self.kernel,
+                engine=self.engine, rebin=self.rebin, return_overflow=True,
+                device=device, state=state)
+            with timed_stage("Gradient and norm", logging.DEBUG):
+                norm = ftle_norm(flowmap_gradient(px, py, self.grid,
+                                                  sigma=self.sigma),
+                                 compat=self.compat)
         if return_overflow:
             return norm, overflow
         return norm

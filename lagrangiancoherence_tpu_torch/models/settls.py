@@ -47,6 +47,7 @@ defaults; the port reads no environment variable.
 """
 from __future__ import annotations
 
+import logging
 from functools import lru_cache
 
 import numpy as np
@@ -60,7 +61,7 @@ from ..ops.cuda_settls import (CONV_Y, clamp_wrap, euler_guess, interleave,
 from ..ops.interp import _to_index, prefilter, spline_filter_matrix
 from ..ops.tiles import SORT_LADDER, TILE_C, TILE_R
 from ..ops.window_interp import windowed_interp_multi
-from ..utils.logging import logger
+from ..utils.logging import logger, timed_stage
 
 __all__ = ["grid_state", "parcel_propagation_core", "resolve_engine",
            "resolve_kernel", "settls_scan"]
@@ -575,14 +576,16 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
     # prefilter every time slice once; raw fields are still needed for the
     # pole rows' order-1/constant path
     mats = (state["prefilter_y"], state["prefilter_x"])
-    cu = prefilter(u, order=interp_order, matrices=mats)
-    cv = prefilter(v, order=interp_order, matrices=mats)
+    with timed_stage("Prefilter", logging.DEBUG):
+        cu = prefilter(u, order=interp_order, matrices=mats)
+        cv = prefilter(v, order=interp_order, matrices=mats)
     dt = torch.full((), float(timestep), dtype=u.dtype, device=u.device)
-    *pos, overflow = settls_scan(
-        u, v, cu, cv, state["px0"], state["py0"], dt, state["conv_x"], grid,
-        settls_order=settls_order, interp_order=interp_order,
-        return_traj=return_traj, kernel=kernel, engine=engine, rebin=rebin,
-        progress=progress)
+    with timed_stage("SETTLS loop", logging.DEBUG):
+        *pos, overflow = settls_scan(
+            u, v, cu, cv, state["px0"], state["py0"], dt, state["conv_x"],
+            grid, settls_order=settls_order, interp_order=interp_order,
+            return_traj=return_traj, kernel=kernel, engine=engine,
+            rebin=rebin, progress=progress)
     if return_overflow:
         return tuple(pos) + (overflow,)
     return tuple(pos)

@@ -29,6 +29,7 @@ device count with a mesh.
 """
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -42,6 +43,7 @@ from .utils.logging import logger, timed_stage
 __all__ = ["ftle_series", "ftle_series_to_files"]
 
 AUTO_BATCH = 8          # windows a chunk for batch="auto", as JAX's off-TPU
+SERIES_SPAN = "Series call"     # the root span of one series call
 
 
 def _windows(nt: int, window: int, stride: int) -> list[int]:
@@ -112,8 +114,10 @@ def _iter_series_chunks(ud, vd, starts, window, timestep, grid, *, batch,
                 outs.append(o)
                 flags.append(f)
             out, overflow = torch.stack(outs), torch.stack(flags)
-        _warn_overflow(overflow.cpu().numpy(), chunk)
-        yield chunk, out.cpu().numpy()
+        with timed_stage("Series chunk copy back", logging.DEBUG):
+            overflow, out = overflow.cpu().numpy(), out.cpu().numpy()
+        _warn_overflow(overflow, chunk)
+        yield chunk, out
 
 
 def _stamp_indices(starts, window, timestep):
@@ -123,8 +127,9 @@ def _stamp_indices(starts, window, timestep):
 
 
 def _setup(u, v, window, stride, propdim, cyclic_x):
-    ud, vd, lats, lons, times = _prep_record(u, v, propdim)
-    grid = Grid(lats=lats, lons=lons, cyclic_x=cyclic_x)
+    with timed_stage("Series record prep"):
+        ud, vd, lats, lons, times = _prep_record(u, v, propdim)
+        grid = Grid(lats=lats, lons=lons, cyclic_x=cyclic_x)
     starts = _windows(ud.shape[0], window, stride)
     if not starts:
         raise ValueError(f"record of {ud.shape[0]} steps is shorter than "
@@ -138,7 +143,8 @@ def _upload(ud, vd, mesh, device):
     device = mesh.devices.flat[0] if mesh is not None \
         else resolve_device(device)
     dtype = torch.get_default_dtype()
-    return on_device(ud, device, dtype), on_device(vd, device, dtype)
+    with timed_stage("Series record upload"):
+        return on_device(ud, device, dtype), on_device(vd, device, dtype)
 
 
 def ftle_series(u, v, timestep: float, *, window: int, stride: int = 1,
@@ -166,23 +172,27 @@ def ftle_series(u, v, timestep: float, *, window: int, stride: int = 1,
     (the reference's research workload, LagrangianCoherence
     LCS/area_of_influence.py:168-184), which clamp at the domain edge.
     """
-    ud, vd, lats, lons, times, grid, starts = _setup(u, v, window, stride,
-                                                     propdim, cyclic_x)
-    batch = _auto_batch(mesh) if batch == "auto" else max(1, int(batch))
-    ud, vd = _upload(ud, vd, mesh, device)
-    kw = dict(settls_order=settls_order, interp_order=interp_order,
-              sigma=sigma, compat=compat, kernel=kernel, engine=engine)
-    fields = []
-    with timed_stage(f"FTLE series: {len(starts)} windows"):
-        for _chunk, out in _iter_series_chunks(ud, vd, starts, window,
-                                               timestep, grid, batch=batch,
-                                               mesh=mesh, pipeline_kw=kw):
-            fields.append(out)
-    stamps = np.asarray(times)[_stamp_indices(starts, window, timestep)]
-    return Field(np.concatenate(fields, axis=0),
-                 (propdim, "latitude", "longitude"),
-                 {propdim: stamps, "latitude": lats, "longitude": lons},
-                 name="ftle")
+    with timed_stage(SERIES_SPAN):
+        ud, vd, lats, lons, times, grid, starts = _setup(
+            u, v, window, stride, propdim, cyclic_x)
+        batch = _auto_batch(mesh) if batch == "auto" else max(1, int(batch))
+        ud, vd = _upload(ud, vd, mesh, device)
+        kw = dict(settls_order=settls_order, interp_order=interp_order,
+                  sigma=sigma, compat=compat, kernel=kernel, engine=engine)
+        fields = []
+        with timed_stage(f"FTLE series: {len(starts)} windows"):
+            for _chunk, out in _iter_series_chunks(
+                    ud, vd, starts, window, timestep, grid, batch=batch,
+                    mesh=mesh, pipeline_kw=kw):
+                fields.append(out)
+        with timed_stage("Series assembly"):
+            stamps = np.asarray(times)[_stamp_indices(starts, window,
+                                                      timestep)]
+            return Field(np.concatenate(fields, axis=0),
+                         (propdim, "latitude", "longitude"),
+                         {propdim: stamps, "latitude": lats,
+                          "longitude": lons},
+                         name="ftle")
 
 
 def _stamp_tag(stamp) -> str:
@@ -209,38 +219,40 @@ def ftle_series_to_files(u, v, timestep: float, outdir: str, *,
     """
     from .utils.io import save_dataset
 
-    os.makedirs(outdir, exist_ok=True)
-    ud, vd, lats, lons, times, grid, starts = _setup(u, v, window, stride,
-                                                     propdim, cyclic_x)
-    stamps = np.asarray(times)[_stamp_indices(starts, window, timestep)]
-    paths = {s: os.path.join(outdir, f"ftle_{_stamp_tag(st)}.nc")
-             for s, st in zip(starts, stamps)}
-    stamp_of = dict(zip(starts, stamps))
-    if overwrite:
-        todo = starts
-    else:
-        todo = [s for s in starts if not os.path.exists(paths[s])]
-        for s in starts:
-            if s not in todo:
-                logger.info("skip existing %s", paths[s])
-    if not todo:
-        return []
+    with timed_stage(SERIES_SPAN):
+        os.makedirs(outdir, exist_ok=True)
+        ud, vd, lats, lons, times, grid, starts = _setup(u, v, window, stride,
+                                                         propdim, cyclic_x)
+        stamps = np.asarray(times)[_stamp_indices(starts, window, timestep)]
+        paths = {s: os.path.join(outdir, f"ftle_{_stamp_tag(st)}.nc")
+                 for s, st in zip(starts, stamps)}
+        stamp_of = dict(zip(starts, stamps))
+        if overwrite:
+            todo = starts
+        else:
+            todo = [s for s in starts if not os.path.exists(paths[s])]
+            for s in starts:
+                if s not in todo:
+                    logger.info("skip existing %s", paths[s])
+        if not todo:
+            return []
 
-    batch = _auto_batch(mesh) if batch == "auto" else max(1, int(batch))
-    ud, vd = _upload(ud, vd, mesh, device)
-    kw = dict(settls_order=settls_order, interp_order=interp_order,
-              sigma=sigma, compat=compat, kernel=kernel, engine=engine)
-    written = []
-    with timed_stage(f"FTLE series → files: {len(todo)} windows"):
-        for chunk, out in _iter_series_chunks(ud, vd, todo, window, timestep,
-                                              grid, batch=batch, mesh=mesh,
-                                              pipeline_kw=kw):
-            for s, field2d in zip(chunk, out):
-                fld = Field(field2d[None], (propdim, "latitude", "longitude"),
-                            {propdim: np.asarray([stamp_of[s]]),
-                             "latitude": lats, "longitude": lons},
-                            name="ftle")
-                if save_dataset({"ftle": fld}, paths[s],
-                                skip_if_exists=not overwrite):
-                    written.append(paths[s])
-    return written
+        batch = _auto_batch(mesh) if batch == "auto" else max(1, int(batch))
+        ud, vd = _upload(ud, vd, mesh, device)
+        kw = dict(settls_order=settls_order, interp_order=interp_order,
+                  sigma=sigma, compat=compat, kernel=kernel, engine=engine)
+        written = []
+        with timed_stage(f"FTLE series → files: {len(todo)} windows"):
+            for chunk, out in _iter_series_chunks(
+                    ud, vd, todo, window, timestep, grid, batch=batch,
+                    mesh=mesh, pipeline_kw=kw):
+                for s, field2d in zip(chunk, out):
+                    fld = Field(field2d[None],
+                                (propdim, "latitude", "longitude"),
+                                {propdim: np.asarray([stamp_of[s]]),
+                                 "latitude": lats, "longitude": lons},
+                                name="ftle")
+                    if save_dataset({"ftle": fld}, paths[s],
+                                    skip_if_exists=not overwrite):
+                        written.append(paths[s])
+        return written

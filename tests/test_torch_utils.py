@@ -2,7 +2,6 @@
 utils/debug.py) on the CPU: counterparts of the JAX package's, which no test
 of its own covers."""
 import json
-import time
 
 import numpy as np
 import pytest
@@ -12,7 +11,7 @@ from lagrangiancoherence_tpu.testing import flows
 from lagrangiancoherence_tpu_torch import Grid, ftle_pipeline
 from lagrangiancoherence_tpu_torch.utils.debug import checked_ftle, nan_debug
 from lagrangiancoherence_tpu_torch.utils.profiling import (
-    StageTimer, device_memory_stats, trace)
+    device_memory_stats, trace)
 
 torch.set_num_threads(1)
 
@@ -22,19 +21,6 @@ def _vortex():
     cfg.update(dx=4, dy=4, nt=3)
     u, v, lats, lons, _ = flows.ideal_vortex(**cfg)
     return u, v, Grid(lats=lats, lons=lons, cyclic_x=True)
-
-
-def test_stage_timer_accumulates():
-    timers = StageTimer()
-    for _ in range(2):
-        with timers("a"):
-            time.sleep(0.01)
-    with timers("b"):
-        pass
-    assert timers.counts == {"a": 2, "b": 1}
-    assert timers.totals["a"] >= 0.02 > timers.totals["b"]
-    report = timers.report().splitlines()
-    assert report[0].startswith("a") and "/ 2x" in report[0]
 
 
 def test_device_memory_stats_without_a_card():
