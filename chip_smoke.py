@@ -58,8 +58,9 @@ before the last is the kernel record ``{"kernels": [{"name", "route",
 "bound_ms", "bound_by", "library_ms", "device_us_per_launch",
 "empty_launch_us", "launches_new_paths"}]}`` (one entry per TPU kernel
 replaced; ``launches_new_paths``: its launches on each path added by the
-windowed blocks, ``dma``, the examples and the bench's timed calls, each
-counted from 0; times:
+windowed blocks, phase 4b's two routes, the facade (phase 8), the series
+(phase 9), the examples and the bench's timed calls, each counted from 0;
+times:
 medians of CUDA-event trials; ``device_us_per_launch``: from
 ``torch.profiler``, null where the profiler saw none of the kernel's
 launches; ``empty_launch_us``: an empty launch through
@@ -70,8 +71,17 @@ phase 4, the routed gather's (its two kernels) and the ladder's from phase
 4b, each counted from 0)
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero, as does a machine without a CUDA device or a directory
-without the package.  ``--quick`` stops after phase 3c (build, and the
-kernels against their plain versions) and prints no result line.  ``--area``
+without the package.  Phase 3d holds the banded prefilter
+``spline_prefilter`` against the dense float64 prefilter (max |kernel -
+dense64| / max |x| <= 1e-6 in float32, and at the flagship shape no more
+than twice the dense float32 GEMMs' own, <= 1e-13 in float64) and against
+its plain sweep, runs it on a second card where there is one, times it
+beside its bound and the dense GEMMs, and counts its launches in one
+resident field (2); it prints ``prefilter record:`` with its numbers.  The
+kernel record's last entry is ``spline_prefilter``'s, its ``launches``
+those of phase 4's main-path call (2).  ``--quick`` stops after phase 3d
+(build, and the kernels against their plain versions) and prints no result
+line; ``--prefilter`` runs phase 3d alone after the build.  ``--area``
 runs phase 8b alone, twice in one process, and prints no result line: its
 second pass shows the workflow's times without the first-use costs (kernel
 build, CUDA module loading, FFT plans) that the first pass of a process pays.
@@ -105,6 +115,12 @@ LOG_FTLE_P99_BOUND = 1.5e-3
 POSITION_F64_ATOL = 1e-9
 REPS = 3
 KERNEL_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/spline_gather.cu"
+PREFILTER_SOURCE = ("lagrangiancoherence_tpu_torch/ops/csrc/"
+                    "spline_prefilter.cu")
+# max |kernel - dense float64| / max |x| of the banded prefilter: a few
+# roundings of the solve in the working type, no truncation
+PREFILTER_F32_RTOL = 1e-6
+PREFILTER_F64_RTOL = 1e-13
 KERNEL_REPLACES = "lagrangiancoherence_tpu/ops/pallas_interp.py:793"
 STEP_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/settls_step.cu"
 WINDOW_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/window_gather.cu"
@@ -833,7 +849,7 @@ def area_uncertain(ftle, ev, ridges, lats, lons, max_steps=128):
     return out
 
 
-def phase_facade(dev, card, check, sync, u64, v64, grid):
+def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
     """Phase 8: ``LCS(isglobal=True)`` at the CLI's defaults on the flagship
     winds, through the fused step.  Returns its launches in the facade's
     run, and the winds regridded and truncated on the card."""
@@ -841,7 +857,7 @@ def phase_facade(dev, card, check, sync, u64, v64, grid):
     from lagrangiancoherence_tpu_torch import LCS, Field, parcel_propagation
     from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
                                                    COMMON_GRID_LONS)
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
+    from lagrangiancoherence_tpu_torch.bench import launch_counts
     from lagrangiancoherence_tpu_torch.ops.regrid import \
         regrid_linear_nearest
     from lagrangiancoherence_tpu_torch.ops.sht import truncate
@@ -856,18 +872,21 @@ def phase_facade(dev, card, check, sync, u64, v64, grid):
     V = Field(v64, DIMS3, coords, name="v")
     expected = NT - 1
     sync()
-    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     with StageClock() as clock:
         out = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
             u=U, v=V, verbose=False, isglobal=True, truncation=TRUNCATION)
     wall = (time.perf_counter() - t0) * 1e3
-    launches, k1 = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
+    by_path["phase 8 facade"] = c = launch_counts()
+    launches, k1 = c["settls_step"], c["spline_gather"]
     log("facade stages, first call (ms): " + json.dumps(
         {k: round(v, 3) for k, v in clock.ms.items()})
         + f", wall {wall:.3f} ms [{card}]")
-    check(launches == expected and k1 == 0, f"settls_step launches in the "
-          f"facade {launches} == {expected}, K1 launches {k1} == 0")
+    check(launches == expected and k1 == 0 and c["spline_prefilter"] == 2,
+          f"settls_step launches in the facade {launches} == {expected}, K1 "
+          f"launches {k1} == 0, spline_prefilter {c['spline_prefilter']} "
+          f"== 2")
     inner = out.data[0, 5:-5]
     check(out.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
           and bool(np.isfinite(inner).all()),
@@ -980,7 +999,8 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
         return out, launch_counts(), (time.perf_counter() - t0) * 1e3
 
     def others(c):
-        return sum(v for k, v in c.items() if k != "settls_step")
+        return sum(v for k, v in c.items()
+                   if k not in ("settls_step", "spline_prefilter"))
 
     # (a) 33 six-hourly levels resample to 17 twelve-hourly ones: 16 steps
     steps = (NT - 1) // 2
@@ -994,9 +1014,11 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
         launches += c["settls_step"]
         log(f"LCS(resample='12h') labelled from {yr}: {wall:.3f} ms wall, "
             f"launches {json.dumps(c)} [{card}]")
-        check(c["settls_step"] == steps and others(c) == 0,
+        check(c["settls_step"] == steps and c["spline_prefilter"] == 2
+              and others(c) == 0,
               f"{yr}: settls_step launches {c['settls_step']} == {steps}, "
-              f"other kernels {others(c)} == 0")
+              f"spline_prefilter {c['spline_prefilter']} == 2, other "
+              f"kernels {others(c)} == 0")
     a, b = ftle[2300], ftle[2020]
     inner = a.data[0, 5:-5]
     check(a.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
@@ -1019,9 +1041,11 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
     launches += c["settls_step"]
     log(f"parcel_propagation(return_traj=True): {wall:.3f} ms wall, "
         f"launches {json.dumps(c)} [{card}]")
-    check(c["settls_step"] == NT - 1 and others(c) == 0,
+    check(c["settls_step"] == NT - 1 and c["spline_prefilter"] == 2
+          and others(c) == 0,
           f"trajectories: settls_step launches {c['settls_step']} == "
-          f"{NT - 1}, other kernels {others(c)} == 0")
+          f"{NT - 1}, spline_prefilter {c['spline_prefilter']} == 2, other "
+          f"kernels {others(c)} == 0")
     labels = np.asarray(tx.coords["time"])
     check(seconds(labels) == want[::-1]
           and np.array_equal(labels, ty.coords["time"])
@@ -1274,15 +1298,15 @@ def series_winds(grid, nt=SERIES_LEVELS):
             v.astype(np.float32), times)
 
 
-def phase_series(dev, card, check, grid):
+def phase_series(dev, card, check, grid, by_path):
     """Phase 9: ``ftle_series`` on the flagship grid (a ``SERIES_LEVELS``
     level record, window ``NT``, stride 1), each window against
     ``ftle_pipeline`` on the same slice, and through a ``batch_mesh`` of the
     card twice.  Returns its ``settls_step`` launches."""
     import torch
     from lagrangiancoherence_tpu_torch import ftle_pipeline, ftle_series
-    from lagrangiancoherence_tpu_torch.bench import event_ms
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
+    from lagrangiancoherence_tpu_torch.bench import event_ms, launch_counts
+    from lagrangiancoherence_tpu_torch.ops import cuda_settls
     from lagrangiancoherence_tpu_torch.parallel.mesh import batch_mesh
     from lagrangiancoherence_tpu_torch.runners import _prep_record, _upload
     ny, nx = grid.shape
@@ -1296,13 +1320,17 @@ def phase_series(dev, card, check, grid):
     kw = dict(window=NT, stride=1, settls_order=SETTLS_ORDER,
               interp_order=ORDER)
     torch.cuda.synchronize()
-    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+    reset_counts()
     series = ftle_series(U, V, DT, device=dev, **kw)
     torch.cuda.synchronize()
-    launches, k1 = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
+    by_path["phase 9 series"] = c = launch_counts()
+    launches, k1 = c["settls_step"], c["spline_gather"]
     expected = (NT - 1) * len(starts)
-    check(launches == expected and k1 == 0, f"series: settls_step launches "
-          f"{launches} == {expected}, K1 launches {k1} == 0")
+    check(launches == expected and k1 == 0
+          and c["spline_prefilter"] == 2 * len(starts),
+          f"series: settls_step launches {launches} == {expected}, K1 "
+          f"launches {k1} == 0, spline_prefilter {c['spline_prefilter']} == "
+          f"{2 * len(starts)} (one a wind component a window)")
     ud = torch.tensor(u32, device=dev)
     vd = torch.tensor(v32, device=dev)
     for i, s in enumerate(starts):
@@ -1353,9 +1381,11 @@ def phase_series(dev, card, check, grid):
 
 
 def reset_counts():
-    from lagrangiancoherence_tpu_torch.ops import (cuda_interp, cuda_settls,
-                                                   cuda_window)
+    from lagrangiancoherence_tpu_torch.ops import (cuda_interp,
+                                                   cuda_prefilter,
+                                                   cuda_settls, cuda_window)
     cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
+    cuda_prefilter.LAUNCHES = 0
     cuda_window.reset_launches()
 
 
@@ -1500,30 +1530,41 @@ def phase_examples(dev, card, check, by_path):
         wall = (time.perf_counter() - t0) * 1e3
         by_path[f"phase 11 {label}"] = c = launch_counts()
         total += c["settls_step"]
-        others = sum(v for k, v in c.items() if k != "settls_step")
+        others = sum(v for k, v in c.items()
+                     if k not in ("settls_step", "spline_prefilter"))
         log(f"{label}: {wall:.3f} ms wall (its first call; the facade's "
             f"set-up was paid in phases 8-9); launches {json.dumps(c)} "
             f"[{card}]")
         return out, c["settls_step"], others
 
-    # 4 steps each: two dye advections and two LCS runs
+    def prefilters(label):
+        return by_path[f"phase 11 {label}"]["spline_prefilter"]
+
+    # 4 steps each: two dye advections and two LCS runs, each prefiltering
+    # both wind components once
     summary, steps, others = counted(
         "ideal_vortex --quick", lambda: ideal_vortex.main(["--quick"]))
     lam = summary["ftle"]["attracting"].data
-    check(steps == 16 and others == 0 and np.isfinite(lam[0, 5:-5]).all()
+    pf = prefilters("ideal_vortex --quick")
+    check(steps == 16 and others == 0 and pf == 8
+          and np.isfinite(lam[0, 5:-5]).all()
           and summary["vortex_ring_max"] > summary["global_median"],
           f"ideal_vortex --quick: settls_step launches {steps} == 16, "
-          f"others {others}; attracting FTLE rows [5:-5] finite; ring max "
+          f"spline_prefilter {pf} == 8, others {others}; attracting FTLE "
+          f"rows [5:-5] finite; ring max "
           f"{summary['vortex_ring_max']:.3f} > median "
           f"{summary['global_median']:.3f}")
-    # 14 three-hourly steps over the window, then the one local step
+    # 14 three-hourly steps over the window, then the one local step: two
+    # runs
     summary, steps, others = counted(
         "area_of_influence --quick",
         lambda: area_of_influence.main(["--quick"]))
-    check(steps == 15 and others == 0 and summary["total_rain"] > 0
-          and summary["ridge_pixels"] > 0,
+    pf = prefilters("area_of_influence --quick")
+    check(steps == 15 and others == 0 and pf == 4
+          and summary["total_rain"] > 0 and summary["ridge_pixels"] > 0,
           f"area_of_influence --quick: settls_step launches {steps} == 15, "
-          f"others {others}; {summary['ridge_pixels']} ridge pixels, rain "
+          f"spline_prefilter {pf} == 4, others {others}; "
+          f"{summary['ridge_pixels']} ridge pixels, rain "
           f"{summary['total_rain']:.0f}")
 
     def run_entry():
@@ -1531,21 +1572,25 @@ def phase_examples(dev, card, check, by_path):
         return fn(*args), args[0].device
     (out, where), steps, others = counted("entry()", run_entry)
     finite = bool(torch.isfinite(out[2:-2]).all())
-    check(steps == 8 and others == 0 and finite and out.is_cuda
+    pf = prefilters("entry()")
+    check(steps == 8 and others == 0 and pf == 2 and finite and out.is_cuda
           and where.type == "cuda" and out.shape == (181, 360),
-          f"entry(): settls_step launches {steps} == 8, others {others}; "
-          f"FTLE {tuple(out.shape)} on {out.device}, rows [2:-2] finite="
-          f"{finite}")
+          f"entry(): settls_step launches {steps} == 8, spline_prefilter "
+          f"{pf} == 2, others {others}; FTLE {tuple(out.shape)} on "
+          f"{out.device}, rows [2:-2] finite={finite}")
     legs, steps, _ = counted("dryrun_multichip(4)",
                              lambda: dryrun_multichip(4))
     c = by_path["phase 11 dryrun_multichip(4)"]
     windowed = [c[k] for k in BLOCKSPEC_LAUNCHES]
     check(all(legs[k] < 1e-4 for k in ("sigma", "mesh_2d", "windowed"))
           and str(legs["windowed_2d"]).startswith("SKIPPED")
-          and windowed == [24] * 3 and steps == 20,
+          and windowed == [24] * 3 and steps == 20
+          and c["spline_prefilter"] == 10,
           f"dryrun_multichip(4) over the card: legs {json.dumps(legs)}; "
           f"window kernel launches {windowed} == 4 blocks x 2 steps x 3 "
-          f"groups each; settls_step {steps} == 20")
+          f"groups each; settls_step {steps} == 20; spline_prefilter "
+          f"{c['spline_prefilter']} == 10 (both components in each of five "
+          f"calls)")
     return total
 
 
@@ -1569,12 +1614,16 @@ def phase_bench(card, check, want_sha, by_path):
     from lagrangiancoherence_tpu_torch import bench
     log(f"== phase 12: the benchmark entry point (bench.main) on the card "
         f"[{card}]")
+    # the numerics record: one parcel_propagation_core (two prefilters)
+    # and one prefiltered group of four fields
     record_launches = {"settls_step": NT, "spline_gather": 1,
                        "tier_window_gather.route": 1,
                        "tier_window_gather.gather": 1,
-                       "pole_ladder_gather": 1, "empty_launch": 0}
-    routes = {"auto": ("20", {"settls_step": NT - 1}),
-              "blockspec": ("2", BLOCKSPEC_LAUNCHES)}
+                       "pole_ladder_gather": 1, "empty_launch": 0,
+                       "spline_prefilter": 3}
+    routes = {"auto": ("20", {"settls_step": NT - 1, "spline_prefilter": 2}),
+              "blockspec": ("2", {**BLOCKSPEC_LAUNCHES,
+                                  "spline_prefilter": 2})}
     total = 0
     for engine, (reps, per_field) in routes.items():
         torch.cuda.synchronize()
@@ -1616,6 +1665,145 @@ def phase_bench(card, check, want_sha, by_path):
     return total
 
 
+def phase_prefilter(dev, card, check, grid, u64, v64):
+    """Phase 3d: the banded prefilter ``spline_prefilter`` against the dense
+    float64 path and its plain sweep on the card, at the flagship shape
+    and at small and ragged ones, in float32 and float64; on a second card,
+    where there is one, the same call on each; its time beside its bound,
+    the plain sweep's and the dense float32 GEMMs' (``library_ms``); and its
+    launches in one resident field.  Returns its kernel record."""
+    import torch
+    from lagrangiancoherence_tpu_torch import FTLEPipeline
+    from lagrangiancoherence_tpu_torch.bench import event_ms
+    from lagrangiancoherence_tpu_torch.ops import cuda_prefilter as CP
+    from lagrangiancoherence_tpu_torch.ops.interp import (
+        prefilter_dense, spline_band_factors, spline_filter_matrix)
+    log(f"== phase 3d: spline_prefilter vs the dense float64 path and the "
+        f"plain sweep on the card [{card}]")
+    ny, nx = grid.shape
+    rng = np.random.RandomState(17)
+    noise = rng.standard_normal((NT, ny, nx))
+    cases = [("flagship u", u64), ("flagship v", v64),
+             ("flagship white noise", noise),
+             ("1-degree grid 181x360", noise[:3, :181, :360]),
+             ("2x3, batch 5", noise[:5, :2, :3]),
+             ("33x40, batch 2", noise[:2, :33, :40])]
+
+    def bands(n_y, n_x, dtype, device=dev):
+        return tuple(torch.tensor(spline_band_factors(n), dtype=dtype,
+                                  device=device) for n in (n_y, n_x))
+
+    errs, abs_errs = {}, {}
+    for dtype, tol in ((torch.float32, PREFILTER_F32_RTOL),
+                       (torch.float64, PREFILTER_F64_RTOL)):
+        name = str(dtype).replace("torch.", "")
+        worst = worst_abs = 0.0
+        for label, a in cases:
+            x = torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                             device=dev)
+            by, bx = bands(*x.shape[-2:], dtype)
+            scale = float(x.abs().max())
+            got = CP.spline_prefilter(x, by, bx)
+            want = prefilter_dense(x.double(), ORDER)
+            plain = CP.spline_prefilter_torch(x, by, bx)
+            torch.cuda.synchronize()
+            err_abs = float((got.double() - want).abs().max())
+            err = err_abs / scale
+            err_plain = float((got - plain).abs().max()) / scale
+            # each within tol of the exact coefficients, so within 2 tol
+            # of each other
+            what = (f"{name} {label}: max|kernel - dense64| / max|x| = "
+                    f"{err:.3e} (<= {tol:g}), vs the plain sweep "
+                    f"{err_plain:.3e} (<= {2 * tol:g})")
+            ok = err <= tol and err_plain <= 2 * tol
+            if dtype == torch.float32:
+                # at the flagship shape no worse than twice the dense
+                # float32 GEMMs' own error
+                dense = prefilter_dense(x, ORDER)
+                err_dense = float((dense.double() - want).abs().max()) / scale
+                what += f"; the dense float32 GEMMs' own {err_dense:.3e}"
+                if label.startswith("flagship"):
+                    what += f" (kernel <= 2x: {err <= 2 * err_dense})"
+                    ok = ok and err <= 2 * err_dense
+                del dense
+            check(ok, what)
+            worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+            del x, got, want, plain
+        errs[name], abs_errs[name] = worst, worst_abs
+    del noise
+
+    u32 = torch.tensor(u64, dtype=torch.float32, device=dev)
+    v32 = torch.tensor(v64, dtype=torch.float32, device=dev)
+    by, bx = bands(ny, nx, torch.float32)
+    # a second card: the kernels' shared-memory limit is per device, and the
+    # launch goes to the field's card whichever is current
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", 1)
+        with torch.cuda.device(0):
+            here = CP.spline_prefilter(u32, by, bx)
+            there = CP.spline_prefilter(u32.to(other),
+                                        *bands(ny, nx, torch.float32, other))
+            torch.cuda.synchronize(other)
+        same = torch.equal(here, there.to(dev))
+        check(same, f"spline_prefilter on {other} (current device 0): "
+                    f"identical to {dev}'s={same}")
+        del here, there
+    else:
+        log("spline_prefilter on a second card: not run (one card)")
+
+    # times at the flagship shape, one wind component a call
+    mats = tuple(torch.tensor(spline_filter_matrix(n, ORDER),
+                              dtype=torch.float32, device=dev)
+                 for n in (ny, nx))
+    nbytes = 2 * u32.numel() * u32.element_size()
+    bound_ms, bound_by, arith = bound(nbytes, 4 * 2 * u32.numel())
+    kernel_ms = spread(event_ms(lambda: CP.spline_prefilter(u32, by, bx), 20,
+                                device=dev))
+    dense_ms = spread(event_ms(lambda: prefilter_dense(u32, ORDER, mats), 5,
+                               device=dev))
+    plain_ms = spread(event_ms(
+        lambda: CP.spline_prefilter_torch(u32, by, bx), 1, trials=3,
+        device=dev))
+    both_us, per_call = device_us(lambda: CP.spline_prefilter(u32, by, bx),
+                                  20, "_sweep_kernel")
+    lat_us, _ = device_us(lambda: CP.spline_prefilter(u32, by, bx), 20,
+                          "lat_sweep_kernel")
+    lon_us, _ = device_us(lambda: CP.spline_prefilter(u32, by, bx), 20,
+                          "lon_sweep_kernel")
+    log(f"spline_prefilter (33x721x1440 float32, one component): "
+        f"{kernel_ms[0]:.4f} ms [{kernel_ms[1]:.4f}, {kernel_ms[2]:.4f}]; "
+        f"device {us_text(lat_us)} latitude + {us_text(lon_us)} longitude "
+        f"({per_call:g} kernels a call); bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({arith}), kernel/bound {kernel_ms[0] / bound_ms:.2f}; "
+        f"dense float32 GEMMs {dense_ms[0]:.4f} ms [{dense_ms[1]:.4f}, "
+        f"{dense_ms[2]:.4f}]; plain sweep {plain_ms[0]:.2f} ms [{card}]")
+
+    # launches in one resident field: one a wind component
+    model = FTLEPipeline(grid, settls_order=SETTLS_ORDER, interp_order=ORDER,
+                         dtype=torch.float32, device=dev)
+    model(u32, v32, DT)
+    torch.cuda.synchronize()
+    CP.LAUNCHES = 0
+    model(u32, v32, DT)
+    torch.cuda.synchronize()
+    per_field = CP.LAUNCHES
+    check(per_field == 2, f"spline_prefilter launches in one resident field: "
+                          f"{per_field} == 2")
+    record = {"name": "spline_prefilter", "route": "cuda",
+              "source": PREFILTER_SOURCE, "replaces": None,
+              "launches_per_field": per_field,
+              "max_abs_err": abs_errs["float32"],
+              "max_rel_err": errs, "ms": kernel_ms[0],
+              "ms_min_max": kernel_ms[1:], "plain_ms": plain_ms[0],
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": dense_ms[0],
+              "device_us_per_launch": (None if both_us is None
+                                       else both_us * per_call),
+              "device_us_latitude": lat_us, "device_us_longitude": lon_us}
+    log("prefilter record: " + json.dumps(record))
+    return record
+
+
 def log(msg=""):
     print(msg, flush=True)
 
@@ -1628,13 +1816,15 @@ def main() -> int:
         return 2
 
     from lagrangiancoherence_tpu_torch import Grid, ftle_pipeline
-    from lagrangiancoherence_tpu_torch.bench import bench_winds, event_ms
+    from lagrangiancoherence_tpu_torch.bench import (bench_winds, event_ms,
+                                                     launch_counts)
     from lagrangiancoherence_tpu_torch.grid import global_quarter_degree_grid
     from lagrangiancoherence_tpu_torch.models.settls import (
         _shard_sortable_groups, _sort_bands, _sort_bin_bands,
         _sort_bin_shard, parcel_propagation_core)
     from lagrangiancoherence_tpu_torch.parallel.pipeline import block_layout
     from lagrangiancoherence_tpu_torch.ops import (_build, cuda_interp,
+                                                   cuda_prefilter,
                                                    cuda_settls, cuda_window)
     from lagrangiancoherence_tpu_torch.ops.interp import (
         interp_at_parcels_multi, prefilter)
@@ -1698,6 +1888,10 @@ def main() -> int:
     u32 = torch.tensor(u64.astype(np.float32), device=dev)
     v32 = torch.tensor(v64.astype(np.float32), device=dev)
     pxn, pyn = flagship_positions(grid)
+    if "--prefilter" in sys.argv[1:]:
+        phase_prefilter(dev, card, check, grid, u64, v64)
+        log(f"chip_smoke --prefilter: {len(failures)} check(s) failed")
+        return 1 if failures else 0
 
     def group_err(W, CW, px, py, f0, nf, order, row_offset=0):
         got, flag = cuda_interp.cuda_interp_multi(
@@ -1800,6 +1994,7 @@ def main() -> int:
         (fl_lats, fl_lons, fu),
         [("flagship", pxn, pyn),
          ("pole rows at +-2**27 deg, NaN positions", pxe, pye)])
+    prefilter_rec = phase_prefilter(dev, card, check, grid, u64, v64)
     if "--quick" in sys.argv[1:]:
         log(f"chip_smoke --quick: {len(failures)} check(s) failed")
         return 1 if failures else 0
@@ -1965,8 +2160,7 @@ def main() -> int:
     dt = torch.full((), DT, dtype=torch.float32, device=dev)
     expected = NT - 1
     torch.cuda.synchronize()
-    cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
-    cuda_window.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     norm, overflow = ftle_pipeline(u32, v32, DT, grid,
                                    settls_order=SETTLS_ORDER,
@@ -1976,13 +2170,16 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches, k1_on_main = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
     window_on_main = sum(cuda_window.LAUNCHES.values())
+    prefilter_on_main = cuda_prefilter.LAUNCHES
     finite = bool(torch.isfinite(norm[2:-2]).all())
     log(f"first call {first_s:.3f} s; FTLE norm range "
         f"[{float(norm[2:-2].min()):.4g}, {float(norm[2:-2].max()):.4g}]")
-    check(launches == expected and k1_on_main == 0 and window_on_main == 0,
+    check(launches == expected and k1_on_main == 0 and window_on_main == 0
+          and prefilter_on_main == 2,
           f"settls_step launches {launches} == {expected}, K1 launches "
           f"{k1_on_main} == 0, window and pole ladder launches "
-          f"{window_on_main} == 0")
+          f"{window_on_main} == 0, spline_prefilter launches "
+          f"{prefilter_on_main} == 2 (one a wind component)")
     check(int(overflow) == 0, f"overflow {int(overflow)} == 0")
     check(norm.shape == (ny, nx) and finite,
           f"shape {tuple(norm.shape)}, rows [2:-2] finite={finite}")
@@ -2004,8 +2201,7 @@ def main() -> int:
     log("== phase 4b: flagship ftle_pipeline(engine='blockspec') through "
         f"tier_window_gather and the pole ladder [{card}]")
     torch.cuda.synchronize()
-    cuda_interp.LAUNCHES = cuda_settls.LAUNCHES = 0
-    cuda_window.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     norm_b, overflow_b = ftle_pipeline(u32, v32, DT, grid,
                                        settls_order=SETTLS_ORDER,
@@ -2016,16 +2212,21 @@ def main() -> int:
     first_b = time.perf_counter() - t0
     window_launch = dict(cuda_window.LAUNCHES)
     other_on_b = cuda_interp.LAUNCHES + cuda_settls.LAUNCHES
+    by_path["phase 4b blockspec"] = launch_counts()
+    prefilter_on_b = cuda_prefilter.LAUNCHES
     log(f"first call {first_b:.3f} s; launches {json.dumps(window_launch)}, "
-        f"K1 and settls_step {other_on_b}")
+        f"K1 and settls_step {other_on_b}, spline_prefilter "
+        f"{prefilter_on_b}")
     check(int(overflow_b) == 0, f"blockspec overflow 0x{int(overflow_b):x} "
           f"== 0")
     on_route = {k: window_launch[k] for k in BLOCKSPEC_LAUNCHES}
     off_route = sum(window_launch.values()) - sum(on_route.values())
-    check(on_route == BLOCKSPEC_LAUNCHES and off_route + other_on_b == 0,
+    check(on_route == BLOCKSPEC_LAUNCHES and off_route + other_on_b == 0
+          and prefilter_on_b == 2,
           f"blockspec launches {json.dumps(on_route)} == "
           f"{json.dumps(BLOCKSPEC_LAUNCHES)}; other window kernels "
-          f"{off_route}, K1 and settls_step {other_on_b} == 0")
+          f"{off_route}, K1 and settls_step {other_on_b} == 0, "
+          f"spline_prefilter {prefilter_on_b} == 2")
     same, dnorm, _ = same_values(norm_b, norm)
     check(same, f"blockspec FTLE vs the fused step's FTLE: identical={same}, "
           f"max|d|={dnorm:.3e}")
@@ -2033,25 +2234,24 @@ def main() -> int:
     # gather is given no ladder, and the sort-binned main path gives each
     # the sort ladder, so the launches and the field are blockspec's
     torch.cuda.synchronize()
-    cuda_interp.LAUNCHES = cuda_settls.LAUNCHES = 0
-    cuda_window.reset_launches()
+    reset_counts()
     norm_d, overflow_d = ftle_pipeline(u32, v32, DT, grid,
                                        settls_order=SETTLS_ORDER,
                                        interp_order=ORDER, kernel="cuda",
                                        engine="dma", return_overflow=True)
     torch.cuda.synchronize()
-    by_path["phase 4b dma"] = dict(cuda_window.LAUNCHES,
-                                   settls_step=cuda_settls.LAUNCHES,
-                                   spline_gather=cuda_interp.LAUNCHES)
+    by_path["phase 4b dma"] = launch_counts()
     on_route = {k: cuda_window.LAUNCHES[k] for k in BLOCKSPEC_LAUNCHES}
     off_route = sum(cuda_window.LAUNCHES.values()) - sum(on_route.values()) \
         + cuda_interp.LAUNCHES + cuda_settls.LAUNCHES
     same_b = same_values(norm_d, norm_b)[0]
     same_a = same_values(norm_d, norm)[0]
     check(int(overflow_d) == 0 and on_route == BLOCKSPEC_LAUNCHES
-          and off_route == 0 and same_b and same_a,
+          and off_route == 0 and cuda_prefilter.LAUNCHES == 2 and same_b
+          and same_a,
           f"engine='dma': overflow 0x{int(overflow_d):x}, launches "
-          f"{json.dumps(on_route)}, others {off_route}; FTLE identical to "
+          f"{json.dumps(on_route)}, others {off_route}, spline_prefilter "
+          f"{cuda_prefilter.LAUNCHES} == 2; FTLE identical to "
           f"blockspec={same_b}, to auto={same_a}")
     # one gather group on the dma ladder, in the grid layout (rebin=False):
     # the routed gather against its plain version, overflow word included
@@ -2445,7 +2645,7 @@ def main() -> int:
 
     # -- 8. the LCS facade; 8c. labels from 2300; 8b. area of influence ------
     n, truncated = phase_facade(dev, card, check, torch.cuda.synchronize,
-                                u64, v64, grid)
+                                u64, v64, grid, by_path)
     launches += n
     launches += phase_labels(dev, card, check, torch.cuda.synchronize, u64,
                              v64, grid, truncated)
@@ -2453,7 +2653,7 @@ def main() -> int:
     launches += phase_area(dev, card, check, torch.cuda.synchronize)
 
     # -- 9. the series runner; 10. the latitude-block pipeline ----------------
-    launches += phase_series(dev, card, check, grid)
+    launches += phase_series(dev, card, check, grid, by_path)
     launches += phase_blocks(dev, card, check, grid, u32, v32, by_path)
 
     # -- 11. the examples, entry() and the multi-block dry run ----------------
@@ -2492,7 +2692,11 @@ def main() -> int:
         record(kname, WINDOW_SOURCE, replaces, per_field[kname],
                window_err[kname])
         for kname, replaced in WINDOW_KERNELS.items()
-        for replaces in replaced]}))
+        for replaces in replaced] + [
+        dict(prefilter_rec, launches=prefilter_on_main,
+             empty_launch_us=empty_us,
+             launches_new_paths={path: c["spline_prefilter"]
+                                 for path, c in by_path.items()})]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

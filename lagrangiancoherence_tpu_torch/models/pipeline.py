@@ -67,7 +67,12 @@ class FTLEPipeline(nn.Module):
     def load_numpy_state(self, arrays: Mapping[str, np.ndarray]) -> None:
         """Copy host arrays (e.g. the JAX package's prefilter matrices) into
         the buffers of the same names, keeping each buffer's dtype and
-        device."""
+        device.
+
+        On the card at order 3 in float32 or float64 the prefilter solves
+        the band with ``ops/interp.spline_band_factors``, not with the dense
+        matrices, so loading ``prefilter_y``/``prefilter_x`` changes only
+        the dense path (the CPU, orders 2/4/5, other dtypes)."""
         buffers = dict(self.named_buffers())
         for name, a in arrays.items():
             if name not in buffers:

@@ -48,12 +48,15 @@ _TIER_ARGTYPES = [_PTR] * 9 + [_INT] * 6 + [_LL] + [_INT] * 6 + [_PTR, _PTR]
 # t order settls_order cyclic, conv_y x_min x_max y_min y_max, stream
 _STEP_ARGTYPES = ([_PTR] * 10 + [_INT] * 4 + [_LL] + [_INT] * 3
                   + [ctypes.c_double] * 5 + [_PTR])
+# in out band_y band_x, batch, ny nx, stream
+_PREFILTER_ARGTYPES = [_PTR] * 4 + [_LL, _INT, _INT, _PTR]
 SIGNATURES = {
     **{f"spline_gather_{t}": _GATHER_ARGTYPES for t in ("f32", "f64")},
     **{f"settls_step_{t}": _STEP_ARGTYPES for t in ("f32", "f64")},
     **{f"tier_window_gather_{t}": _TIER_ARGTYPES for t in ("f32", "f64")},
     **{f"pole_ladder_gather_{t}": _LADDER_ARGTYPES for t in ("f32", "f64")},
     **{f"empty_launch_{t}": _LADDER_ARGTYPES for t in ("f32", "f64")},
+    **{f"spline_prefilter_{t}": _PREFILTER_ARGTYPES for t in ("f32", "f64")},
 }
 
 

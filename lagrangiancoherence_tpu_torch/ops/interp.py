@@ -31,9 +31,13 @@ from math import comb, factorial
 import numpy as np
 import torch
 
+from . import cuda_prefilter
+
 __all__ = [
     "spline_filter_matrix",
+    "spline_band_factors",
     "prefilter",
+    "prefilter_dense",
     "scale_positions",
     "eval_spline_wrap",
     "eval_linear_constant",
@@ -68,35 +72,76 @@ def _bspline_int_samples(order: int) -> np.ndarray:
     return w.sum(axis=1) / factorial(order)
 
 
+def _spline_forward_band(n: int, order: int) -> np.ndarray:
+    """Dense float64 forward system of scipy's ``mode='wrap'`` prefilter
+    (orders 2-5, ``n >= 2``).  Row ``i`` sums the B-spline's integer
+    samples over taps ``i+k``, with out-of-range taps mirrored about the
+    edge samples."""
+    w = _bspline_int_samples(order)
+    half = order // 2
+    fwd = np.zeros((n, n), dtype=np.float64)
+    for i in range(n):
+        for k, wk in zip(range(-half, half + 1), w):
+            j = i + k
+            if j < 0:
+                j = -j
+            if j > n - 1:
+                j = 2 * (n - 1) - j
+            fwd[i, j] += wk
+    return fwd
+
+
 @lru_cache(maxsize=64)
 def spline_filter_matrix(n: int, order: int = 3) -> np.ndarray:
     """Dense inverse of scipy's ``mode='wrap'`` prefilter system (read-only).
 
     ``c = M @ x`` reproduces ``scipy.ndimage.spline_filter1d(x, order,
-    mode='wrap')`` for orders 2-5; orders 0 and 1 need no prefilter.  Row
-    ``i`` of the banded forward system sums the B-spline's integer samples
-    over taps ``i+k``, with out-of-range taps mirrored about the edge samples.
+    mode='wrap')`` for orders 2-5; orders 0 and 1 need no prefilter.  The
+    forward system is ``_spline_forward_band``'s.
     """
     if order in (0, 1) or n < 2:
         m = np.eye(n)
     elif order in (2, 3, 4, 5):
-        w = _bspline_int_samples(order)
-        half = order // 2
-        fwd = np.zeros((n, n), dtype=np.float64)
-        for i in range(n):
-            for k, wk in zip(range(-half, half + 1), w):
-                j = i + k
-                if j < 0:
-                    j = -j
-                if j > n - 1:
-                    j = 2 * (n - 1) - j
-                fwd[i, j] += wk
-        m = np.linalg.inv(fwd)
+        m = np.linalg.inv(_spline_forward_band(n, order))
     else:
         raise NotImplementedError(
             f"spline order {order} not supported (scipy surface is 0-5)")
     m.setflags(write=False)
     return m
+
+
+@lru_cache(maxsize=64)
+def spline_band_factors(n: int, order: int = 3) -> np.ndarray:
+    """LU factors of the tridiagonal forward system that
+    ``spline_filter_matrix`` inverts at order 3, read-only float64.
+
+    Returns a (3, n) array of per-row factors: ``l`` (row 0), the
+    sub-diagonal multipliers of L (``l[0] = 0``); ``r`` (row 1), the
+    reciprocals of U's pivots; ``c`` (row 2), U's super-diagonal, which is
+    the system's own (``c[n-1] = 0``).  The mirrored edge rows are in the
+    band, and no pivoting is needed: every row is strictly diagonally
+    dominant (4/6 against at most 2/6 at order 3).  With them the system
+    solves line by line: ``y[i] = x[i] - l[i] * y[i-1]``, then
+    ``c_[i] = (y[i] - c[i] * c_[i+1]) * r[i]`` from the last row back.
+    For ``n < 2`` the system is the identity, as in ``spline_filter_matrix``.
+    """
+    if order != 3:
+        raise NotImplementedError(
+            f"spline order {order}: the band solve covers order 3")
+    f = np.zeros((3, n), dtype=np.float64)
+    if n < 2:
+        f[1] = 1.0
+    else:
+        fwd = _spline_forward_band(n, order)
+        pivot = fwd[0, 0]
+        f[1, 0] = 1.0 / pivot
+        for i in range(1, n):
+            f[0, i] = fwd[i, i - 1] / pivot
+            pivot = fwd[i, i] - f[0, i] * fwd[i - 1, i]
+            f[1, i] = 1.0 / pivot
+        f[2, :-1] = np.diagonal(fwd, 1)
+    f.setflags(write=False)
+    return f
 
 
 def _check_matmul_precision() -> None:
@@ -115,12 +160,51 @@ def _check_matmul_precision() -> None:
                            "precision('highest')")
 
 
+def _band_solve_applies(device_type: str, order: int,
+                        dtype: torch.dtype) -> bool:
+    """Whether ``prefilter`` takes the banded kernel: a CUDA tensor at
+    order 3 in float32 or float64."""
+    return (device_type == "cuda" and order == 3
+            and dtype in (torch.float32, torch.float64))
+
+
+@lru_cache(maxsize=16)
+def _band_tensor(n: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """``spline_band_factors(n)`` in ``dtype`` on ``device``, uploaded
+    once."""
+    return torch.tensor(spline_band_factors(n), dtype=dtype, device=device)
+
+
 def prefilter(field: torch.Tensor, order: int = 3,
               matrices: tuple[torch.Tensor, torch.Tensor] | None = None
               ) -> torch.Tensor:
-    """Separable 2-D spline prefilter over the trailing (lat, lon) axes.
+    """Separable 2-D spline prefilter over the trailing (lat, lon) axes;
+    leading axes (time, component) are batched.
 
-    Two dense matmuls; leading axes (time, component) are batched.
+    On a CUDA tensor at order 3 in float32 or float64 the hand-written
+    banded solve of ``ops/cuda_prefilter.py`` runs (a latitude and a
+    longitude sweep), with the ``spline_band_factors`` of the field's
+    shape, uploaded once a device and dtype; ``matrices`` is not read
+    there.  Everywhere else (the CPU, orders 2/4/5, other dtypes)
+    ``prefilter_dense`` runs.  Both solve the same mirrored band, in the
+    field's precision.
+    """
+    if order in (0, 1):
+        return field
+    if _band_solve_applies(field.device.type, order, field.dtype):
+        ny, nx = field.shape[-2], field.shape[-1]
+        return cuda_prefilter.spline_prefilter(
+            field.contiguous(), _band_tensor(ny, field.dtype, field.device),
+            _band_tensor(nx, field.dtype, field.device))
+    return prefilter_dense(field, order, matrices)
+
+
+def prefilter_dense(field: torch.Tensor, order: int = 3,
+                    matrices: tuple[torch.Tensor, torch.Tensor] | None = None
+                    ) -> torch.Tensor:
+    """The prefilter as two dense matmuls by the inverse, on any device.
+
     ``matrices`` = (``M_y``, ``M_x``) on the field's device and dtype, as
     ``FTLEPipeline`` holds them; by default they are built from
     ``spline_filter_matrix``.

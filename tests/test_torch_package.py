@@ -163,12 +163,13 @@ def test_build_names_library_by_source_hash():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert [p.name for p in _build._sources()] == ["settls_step.cu",
                                                    "spline_gather.cu",
+                                                   "spline_prefilter.cu",
                                                    "window_gather.cu"]
     assert [p.name for p in _build._headers()] == ["gather_math.cuh"]
     assert set(_build.SIGNATURES) == {
         f"{k}_{t}" for k in ("spline_gather", "settls_step",
                              "tier_window_gather", "pole_ladder_gather",
-                             "empty_launch")
+                             "empty_launch", "spline_prefilter")
         for t in ("f32", "f64")}
 
 
