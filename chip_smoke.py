@@ -30,13 +30,14 @@ float64 FTLE; a first and a second call timed by stage — phase 8c the same
 facade with ``resample="12h"`` and ``parcel_propagation(return_traj=True)``
 on those winds labelled from 2300 by the port's CF decoder (NCEP's
 ``"hours since 1800-1-1 00:00:0.0"``), outside datetime64[ns]'s range, with a
-resample alias pandas 3 removed refused before any launch — and phase 8b the
-area-of-influence
-workflow (LagrangianCoherence LCS/area_of_influence.py, as
-``examples/area_of_influence.py`` runs it) at ERA5's 0.25 degrees: ``LCS``
-with a 3-hourly resample, ``threshold_local``, the Hessian ridges,
-``skeletonize``, ``filter_ridges`` and ``find_area``, each held against the
-same call in float64 on the CPU.  Phase 9 runs ``ftle_series`` over a
+resample alias pandas 3 removed refused before any launch — and phase 8b one
+area-of-influence case (LagrangianCoherence LCS/area_of_influence.py, as
+``examples/area_of_influence.case`` runs its stages 1-7) at ERA5's 0.25
+degrees: timed by its spans, its ``skeletonize`` sweeps counted, its
+outputs identical to the same case through the plain step, and its
+``threshold_local``, Hessian ridges, ``skeletonize``, ``filter_ridges`` and
+then ``find_area`` each held against the same call in float64 on the CPU.
+Phase 9 runs ``ftle_series`` over a
 36-level record on the flagship grid (4 windows, each identical to
 ``ftle_pipeline`` on its slice, and again through a ``batch_mesh`` of the
 card twice); phase 10 the latitude-block pipeline's
@@ -95,7 +96,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import os
 import subprocess
 import sys
 import time
@@ -715,33 +715,11 @@ FACADE_F32_REL = 1e-5
 # snap threshold (relative to the walked distance and the coordinates)
 DIAG_REL = 1e-3
 AREA_REL = 1e-5
-AREA_NT = 16             # six-hourly levels, examples/area_of_influence.py:81
-AREA_WINDOW = 8          # the last 8 levels, resampled to 3 h (:94-98)
-RIDGE_SIGMA, RIDGE_TOL = 1.2, 1e-3          # :115-117 of the example
-FILTER = (["mean_intensity", "major_axis_length"], [1.2, 30.0])   # :119-121
-
-
-def era5_box_winds(nt=AREA_NT, seed=0):
-    """The moisture-flux winds u = viwve/tcwv, v = viwvn/tcwv of
-    examples/area_of_influence.py:42-72,85-86 (its closed forms, rewritten
-    here), at ERA5's 0.25 degrees over the example's box: latitude -40..15
-    and longitude -90..-32, 221 x 233 points, ``nt`` six-hourly levels.
-    Returns (lats, lons, times, u, v), float64."""
-    rng = np.random.RandomState(seed)
-    lats = np.linspace(-40.0, 15.0, 221)
-    lons = np.linspace(-90.0, -32.0, 233)
-    times = np.datetime64("2020-01-20", "ns") \
-        + np.arange(nt) * np.timedelta64(6, "h")
-    LON, LAT = np.meshgrid(lons, lats)
-    t = np.arange(nt)[:, None, None]
-    jet = 250.0 * np.exp(-((LAT + 15.0 - 3 * np.sin(2 * np.pi * t / nt))
-                           / 6.0) ** 2)
-    viwve = jet * (1 + 0.2 * np.sin(2 * np.pi * (LON + 60) / 30.0)) \
-        + 20.0 * rng.randn(nt, lats.size, lons.size) * 0.05
-    viwvn = 100.0 * np.exp(-((LON + 60.0) / 10.0) ** 2) \
-        * np.sin(np.pi * (LAT + 40) / 55.0) + 0.2 * t
-    tcwv = 30.0 + 20.0 * np.cos(np.deg2rad(LAT)) + 0.0 * t
-    return lats, lons, times, viwve / tcwv, viwvn / tcwv
+AREA_NT = 16             # six-hourly levels, as the example's main runs
+AREA_WINDOW = 8          # the case's last 8 levels, resampled to 3 h
+AREA_BOX = (221, 233)    # the example's box at ERA5's 0.25 degrees
+RIDGE_SIGMA, RIDGE_TOL = 1.2, 1e-3          # the case's ridge parameters
+FILTER = (["mean_intensity", "major_axis_length"], [1.2, 30.0])
 
 
 class StageClock:
@@ -1073,29 +1051,29 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
 
 
 def phase_area(dev, card, check, sync):
-    """Phase 8b: the area-of-influence workflow of
-    examples/area_of_influence.py:84-149 at ERA5 0.25 degrees over the
-    example's box, through the fused step, then ``find_area``.  The
-    diagnostics run on the card in the default dtype (float32) and are held
-    against the same calls on the CPU in float64.  Returns the fused step's
-    launches in the two LCS runs."""
+    """Phase 8b: one area-of-influence case (``examples/area_of_influence
+    .case``, stages 1-7) on the example's own fields at ERA5's 0.25 degrees
+    over its box, through the fused step, then ``find_area``.  The case is
+    timed by its spans, its ``skeletonize`` sweeps counted, a warm case
+    profiled, and its outputs held equal to the same case through the
+    plain step.  Its diagnostics (float32 on the card) are held against the
+    same calls in float64 on the CPU, each fed the card's output of the
+    stage before.  Returns the fused step's launches in the first case."""
     import torch
-    from lagrangiancoherence_tpu_torch import (LCS, Field, filter_ridges,
-                                              find_area,
+    from lagrangiancoherence_tpu_torch import (filter_ridges, find_area,
                                               find_ridges_spherical_hessian)
-    from lagrangiancoherence_tpu_torch.ops import cuda_interp, cuda_settls
+    from lagrangiancoherence_tpu_torch.examples import area_of_influence
+    from lagrangiancoherence_tpu_torch.ops import (cuda_interp, cuda_settls,
+                                                  morphology)
     from lagrangiancoherence_tpu_torch.ops.morphology import (skeletonize,
                                                               threshold_local)
-    lats, lons, times, u, v = era5_box_winds()
-    log(f"== phase 8b: area of influence, {lons.size}x{lats.size} at 0.25 "
-        f"deg, {AREA_NT} levels, SETTLS-{SETTLS_ORDER} with resample='3h' "
-        f"[{card}]")
-    coords = {"time": times, "latitude": lats, "longitude": lons}
-    U = Field(u, DIMS3, coords, name="u")
-    V = Field(v, DIMS3, coords, name="v")
-    window = {"time": slice(-AREA_WINDOW, None)}
-    local = {"time": slice(-2, None)}
-    runs = (("ftle", window, {"resample": "3h"}), ("ftle_local", local, {}))
+    data = area_of_influence.synthetic_era5(nt=AREA_NT, ny=AREA_BOX[0],
+                                            nx=AREA_BOX[1])
+    lats = np.sort(data["pr"].coords["latitude"])
+    lons = np.sort(data["pr"].coords["longitude"])
+    log(f"== phase 8b: area-of-influence case, {lons.size}x{lats.size} at "
+        f"0.25 deg, {AREA_NT} levels, SETTLS-{SETTLS_ORDER} with "
+        f"resample='3h' [{card}]")
     ms = {}
 
     def timed(name, fn):
@@ -1106,92 +1084,63 @@ def phase_area(dev, card, check, sync):
         ms[name] = (time.perf_counter() - t0) * 1e3
         return out
 
-    # 2. the windowed FTLE and the two-level "local" FTLE (non-cyclic); the
-    # one-step run goes under torch.profiler, in its first call and in a
-    # second, to show where its time goes, and a third call runs without it
+    def case(name, **kw):
+        sweeps = morphology.SWEEPS
+        with StageClock() as clock:
+            out = timed(name, lambda: area_of_influence.case(
+                **data, device=dev, **kw))
+        log(f"{name}: {ms[name]:.3f} ms, skeletonize sweeps "
+            f"{morphology.SWEEPS - sweeps}, spans (ms, the last of each "
+            f"name) " + json.dumps({k: round(v, 3) for k, v in
+                                    clock.ms.items()}) + f" [{card}]")
+        return out, morphology.SWEEPS - sweeps
+
     sync()
     cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
-    lcs = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)
-    ftle = {}
-
-    def call(name, sel, kw, profiled):
-        def run():
-            return lcs(u=U.isel(sel), v=V.isel(sel), verbose=False, **kw)
-
-        with StageClock() as clock:
-            if profiled:
-                out, wall, busy, top, where = timed(
-                    name, lambda: profile_call(run))
-                extra = (f"; under torch.profiler: wall {wall:.3f} ms, "
-                         f"device busy {busy:.3f} ms, most host self time "
-                         f"(ms, calls) {json.dumps(top)}; heaviest events "
-                         f"(ms, shapes) {json.dumps(where)}")
-            else:
-                out, extra = timed(name, run), ""
-        log(f"{name}: {ms[name]:.3f} ms, stages (ms) " + json.dumps(
-            {k: round(v, 3) for k, v in clock.ms.items()}) + extra
-            + f" [{card}]")
-        return out
-
-    for name, sel, kw in runs:
-        ftle[name] = call(name, sel, kw, name == "ftle_local")
+    out, sweeps = case("case, first")
     launches, k1 = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
     # 3-hourly steps over the window, then the one local step
     expected = 2 * (AREA_WINDOW - 1) + 1
     check(launches == expected and k1 == 0, f"settls_step launches in the "
-          f"two LCS runs {launches} == {expected}, K1 launches {k1} == 0")
-    _, sel, kw = runs[1]
-    call("ftle_local, second call", sel, kw, True)
-    call("ftle_local, third call", sel, kw, False)
-    # the one-step run's winds to the card as float32: converted on the
-    # host, as devices.on_device does, and on the card after the copy
-    a64 = np.ascontiguousarray(u[-2:])
-    copies = {"host": lambda: torch.as_tensor(a64, dtype=torch.float32,
-                                              device=dev),
-              "card": lambda: torch.as_tensor(a64, device=dev).to(
-                  torch.float32)}
-    for where, fn in copies.items():
-        trials = []
-        for _ in range(20):
-            timed("copy", fn)
-            trials.append(ms.pop("copy"))
-        log(f"(2, 221, 233) float64 winds to the card as float32, converted "
-            f"on the {where}: {np.median(trials):.3f} ms [{min(trials):.3f}, "
-            f"{max(trials):.3f}] (median [min, max] of 20; host threads "
-            f"{torch.get_num_threads()}, cores {len(os.sched_getaffinity(0))})"
-            f" [{card}]")
-    same = bool(torch.equal(copies["host"](), copies["card"]()))
-    check(same, f"float64 -> float32 on the card equals the host's: {same}")
-    plain = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, kernel="torch",
-                device=dev)
-    for name, sel, kw in runs:
-        want = plain(u=U.isel(sel), v=V.isel(sel), verbose=False, **kw)
-        same = np.array_equal(ftle[name].data, want.data, equal_nan=True)
-        check(same, f"{name}: FTLE through the fused step identical to the "
+          f"case {launches} == {expected}, K1 launches {k1} == 0")
+    check(0 < sweeps <= 256, f"skeletonize sweeps in the case: {sweeps}")
+    case("case, second")
+    _, wall, busy, top, where = profile_call(
+        lambda: area_of_influence.case(**data, device=dev))
+    log(f"case under torch.profiler: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms, most host self time (ms, calls) {json.dumps(top)}; "
+        f"heaviest events (ms, shapes) {json.dumps(where)} [{card}]")
+    plain, _ = case("case, plain step", kernel="torch")
+    for k, got in out.items():
+        want = plain[k]
+        a, b = (np.asarray(x.data if hasattr(x, "dims") else x)
+                for x in (got, want))
+        same = np.array_equal(a, b, equal_nan=True) if a.dtype != object \
+            else a.tolist() == b.tolist()
+        check(same, f"case {k}: through the fused step identical to the "
               f"plain step's on the card: {same}")
-    # 3. log scaling (example :104-106)
-    fl = ftle["ftle"].isel(time=0)
-    fl = fl.copy(data=np.log(fl.data) / 2)
-    fll = ftle["ftle_local"].isel(time=0)
-    fll = fll.copy(data=np.log(fll.data) * 4)
+    log(f"case: {int((out['ridges'].data > 0).sum())} filtered ridge "
+        f"pixels, {int(np.nansum(out['ridges_high_gradient'].data > 0))} of "
+        f"high pressure gradient; rain total {out['total_rain']:.1f}, on "
+        f"CZs {out['rain_on_czs']:.1f}, on local strain "
+        f"{out['rain_on_local_strain']:.1f} [{card}]")
+    fl, fll = out["log_ftle"], out["log_ftle_local"]
     block = min(301, (min(fll.shape) // 2) * 2 + 1)
 
     def diagnostics(device):
-        """Steps 4-5 of the example and find_area, each on ``device`` in the
-        default dtype; skeletonize, filter_ridges and find_area get the
-        card's masks, so that each stage is compared on equal inputs."""
-        out = {"threshold": timed(f"threshold_local[{device}]", lambda:
-                                  threshold_local(fll.data, block,
-                                                  offset=-0.8,
-                                                  device=device)
-                                  .cpu().numpy())}
-        out["ridges"] = timed(f"ridges[{device}]", lambda:
-                              find_ridges_spherical_hessian(
-                                  fl, sigma=RIDGE_SIGMA,
-                                  tolerance_threshold=RIDGE_TOL,
-                                  return_eigvectors=True, isglobal=False,
-                                  device=device))
-        return out
+        """The case's threshold and ridges on ``device`` in the default
+        dtype, on the card's log-FTLE fields."""
+        return {"threshold": timed(f"threshold_local[{device}]", lambda:
+                                   threshold_local(fll.data, block,
+                                                   offset=-0.8,
+                                                   device=device)
+                                   .cpu().numpy()),
+                "ridges": timed(f"ridges[{device}]", lambda:
+                                find_ridges_spherical_hessian(
+                                    fl, sigma=RIDGE_SIGMA,
+                                    tolerance_threshold=RIDGE_TOL,
+                                    return_eigvectors=True, isglobal=False,
+                                    device=device))}
 
     def downstream(device, ridges, eigvectors):
         skel = timed(f"skeletonize[{device}]", lambda: skeletonize(
@@ -1203,7 +1152,13 @@ def phase_area(dev, card, check, sync):
         return skel.cpu().numpy(), kept, area.data
 
     card_out = diagnostics(dev)
+    check(np.array_equal(card_out["ridges"][0].data, out["ridges_raw"]),
+          "the ridges of the case's log-FTLE on the card again: the case's "
+          "ridge mask")
     card_down = downstream(dev, card_out["ridges"][0], card_out["ridges"][3])
+    check(np.array_equal(card_down[0], out["skeleton"])
+          and np.array_equal(np.nan_to_num(card_down[1]), out["ridges"].data),
+          "skeletonize and filter_ridges on the card again: the case's")
     torch.set_default_dtype(torch.float64)
     try:
         cpu_out = diagnostics("cpu")

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..field import Field, as_field
+from ..utils.logging import timed_stage
 
 __all__ = ["filter_ridges", "label_components", "component_properties"]
 
@@ -79,30 +80,31 @@ def filter_ridges(ridges, intensity, criteria, thresholds):
     field the intensity criteria are evaluated on (the research script passes FTLE,
     LagrangianCoherence LCS/area_of_influence.py:210).  Either may be a
     tensor on any device.  Returns the ridge values with non-kept pixels
-    set to NaN.
+    set to NaN.  The span "Ridge filter" (INFO) covers the call.
     """
     if len(criteria) != len(thresholds):
         raise ValueError("criteria and thresholds must pair up")
-    ridges, intensity = (a.cpu().numpy() if isinstance(a, torch.Tensor)
-                         else a for a in (ridges, intensity))
-    is_field = hasattr(ridges, "dims")
-    rf = as_field(ridges) if is_field else None
-    rmask = np.asarray(rf.data if is_field else ridges, dtype=np.float64)
-    ival = np.asarray(intensity.data if hasattr(intensity, "data")
-                      and not isinstance(intensity, np.ndarray)
-                      else intensity, dtype=np.float64)
-    labels, n = label_components(rmask)
-    out = np.where(np.nan_to_num(rmask) > 0, rmask, np.nan)
-    if n == 0:
+    with timed_stage("Ridge filter"):
+        ridges, intensity = (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                             else a for a in (ridges, intensity))
+        is_field = hasattr(ridges, "dims")
+        rf = as_field(ridges) if is_field else None
+        rmask = np.asarray(rf.data if is_field else ridges, dtype=np.float64)
+        ival = np.asarray(intensity.data if hasattr(intensity, "data")
+                          and not isinstance(intensity, np.ndarray)
+                          else intensity, dtype=np.float64)
+        labels, n = label_components(rmask)
+        out = np.where(np.nan_to_num(rmask) > 0, rmask, np.nan)
+        if n == 0:
+            return rf.copy(data=out) if is_field else out
+        props = component_properties(labels, n, ival)
+        keep = np.ones(n, dtype=bool)
+        for crit, thr in zip(criteria, thresholds):
+            if crit not in props:
+                raise ValueError(f"unknown criterion {crit!r}; "
+                                 f"supported: {sorted(props)}")
+            keep &= props[crit] >= thr
+        keep_mask = np.zeros(labels.shape, dtype=bool)
+        keep_mask[labels > 0] = keep[labels[labels > 0] - 1]
+        out = np.where(keep_mask, out, np.nan)
         return rf.copy(data=out) if is_field else out
-    props = component_properties(labels, n, ival)
-    keep = np.ones(n, dtype=bool)
-    for crit, thr in zip(criteria, thresholds):
-        if crit not in props:
-            raise ValueError(f"unknown criterion {crit!r}; "
-                             f"supported: {sorted(props)}")
-        keep &= props[crit] >= thr
-    keep_mask = np.zeros(labels.shape, dtype=bool)
-    keep_mask[labels > 0] = keep[labels[labels > 0] - 1]
-    out = np.where(keep_mask, out, np.nan)
-    return rf.copy(data=out) if is_field else out

@@ -24,6 +24,7 @@ from ..devices import on_device, resolve_device
 from ..grid import Grid
 from ..ops.filters import gaussian_filter
 from ..ops.stencil import derivative_spherical_coords
+from ..utils.logging import timed_stage
 
 __all__ = ["symmetric_eig_2x2", "find_ridges_core",
            "find_ridges_spherical_hessian"]
@@ -137,38 +138,41 @@ def find_ridges_spherical_hessian(da, sigma=0.5, scheme: str = "first_order",
     ``torch.get_default_dtype()``, as the JAX facade follows the x64 switch.
     Returns host Fields: ``(ridges, eigmin)`` or, with
     ``return_eigvectors=True``,
-    ``(ridges, eigmin, dt_prod, eigvectors, gradient, angle)``.
+    ``(ridges, eigmin, dt_prod, eigvectors, gradient, angle)``.  The span
+    "Hessian ridges" (INFO) covers the call, its copies to the host
+    included.
     """
     from ..field import Field, as_field
-    device = resolve_device(device, da)
-    da = as_field(da).sortby("latitude").sortby("longitude")
-    da = da.transpose("latitude", "longitude")
-    lats = da.coords["latitude"]
-    lons = da.coords["longitude"]
-    grid = Grid(lats=lats, lons=lons, cyclic_x=isglobal)
-    out = find_ridges_core(on_device(da.data, device,
-                                     torch.get_default_dtype()),
-                           grid, sigma, float(tolerance_threshold),
-                           isglobal, compat)
-    coords = {"latitude": lats, "longitude": lons}
-    dims = ("latitude", "longitude")
+    with timed_stage("Hessian ridges"):
+        device = resolve_device(device, da)
+        da = as_field(da).sortby("latitude").sortby("longitude")
+        da = da.transpose("latitude", "longitude")
+        lats = da.coords["latitude"]
+        lons = da.coords["longitude"]
+        grid = Grid(lats=lats, lons=lons, cyclic_x=isglobal)
+        out = find_ridges_core(on_device(da.data, device,
+                                         torch.get_default_dtype()),
+                               grid, sigma, float(tolerance_threshold),
+                               isglobal, compat)
+        coords = {"latitude": lats, "longitude": lons}
+        dims = ("latitude", "longitude")
 
-    def host(name):
-        return out[name].cpu().numpy()
+        def host(name):
+            return out[name].cpu().numpy()
 
-    def f2(name):
-        return Field(host(name), dims, dict(coords), name=name)
+        def f2(name):
+            return Field(host(name), dims, dict(coords), name=name)
 
-    ridges = f2("ridges")
-    eigmin = f2("eigmin")
-    if not return_eigvectors:
-        return ridges, eigmin
-    dt_prod = f2("dt_prod")
-    eigvectors = Field(np.moveaxis(host("eigvectors"), -1, 0),
-                       ("eigvectors",) + dims,
-                       {**coords, "eigvectors": np.arange(2)},
-                       name="eigvectors")
-    gradient = Field(host("gradient"), ("elements",) + dims,
-                     {**coords, "elements": np.arange(2)}, name="gradient")
-    angle = f2("angle")
-    return ridges, eigmin, dt_prod, eigvectors, gradient, angle
+        ridges = f2("ridges")
+        eigmin = f2("eigmin")
+        if not return_eigvectors:
+            return ridges, eigmin
+        dt_prod = f2("dt_prod")
+        eigvectors = Field(np.moveaxis(host("eigvectors"), -1, 0),
+                           ("eigvectors",) + dims,
+                           {**coords, "eigvectors": np.arange(2)},
+                           name="eigvectors")
+        gradient = Field(host("gradient"), ("elements",) + dims,
+                         {**coords, "elements": np.arange(2)}, name="gradient")
+        angle = f2("angle")
+        return ridges, eigmin, dt_prod, eigvectors, gradient, angle

@@ -17,7 +17,12 @@ masks, and ``binary_dilation``/``binary_erosion`` for neighbourhood ops.
   ``lax.while_loop`` until no pixel changes; here the "changed" test is a
   host sync, so it is taken once every ``CHECK_EVERY`` sweeps, never past
   ``max_iter``.  A sweep changes nothing once a sweep has changed nothing,
-  so the extra sweeps leave the result identical.
+  so the extra sweeps leave the result identical.  ``SWEEPS`` counts the
+  sweeps run, as ``cuda_settls.LAUNCHES`` counts launches.
+
+``threshold_local`` opens the span "Local threshold" (its launches; the
+caller's copy to the host ends the device work) and ``skeletonize`` the
+span "Skeletonize" (its sweeps and host checks), both at INFO.
 """
 from __future__ import annotations
 
@@ -25,13 +30,15 @@ import numpy as np
 import torch
 
 from ..devices import on_device, resolve_device
+from ..utils.logging import timed_stage
 from .filters import _symmetric_index, gaussian_filter
 
-__all__ = ["otsu_threshold", "threshold_local", "binary_dilation",
+__all__ = ["SWEEPS", "otsu_threshold", "threshold_local", "binary_dilation",
            "binary_erosion", "skeletonize"]
 
 CHECK_EVERY = 8        # Zhang-Suen sweeps between host checks for a change
 _MEDIAN_CHUNK = 2 ** 24   # window elements per median pass (memory bound)
+SWEEPS = 0             # Zhang-Suen sweeps run by ``skeletonize``
 
 
 def otsu_threshold(image, nbins: int = 256) -> float:
@@ -78,25 +85,28 @@ def threshold_local(image, block_size: int, method: str = "gaussian",
     LagrangianCoherence LCS/area_of_influence.py:195-196)."""
     if block_size % 2 == 0:
         raise ValueError("block_size must be odd")
-    img = on_device(image, resolve_device(device, image))
-    if method == "gaussian":
-        sigma = (block_size - 1) / 6.0
-        stat = gaussian_filter(img, sigma=sigma)
-    elif method == "mean":
-        r = block_size // 2
-        ny, nx = img.shape[-2], img.shape[-1]
-        p = torch.index_select(img, -2, _symmetric_index(ny, r, img.device))
-        p = torch.index_select(p, -1, _symmetric_index(nx, r, img.device))
-        ii = torch.cumsum(torch.cumsum(p, dim=-2), dim=-1)
-        ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
-        b = block_size
-        stat = (ii[..., b:b + ny, b:b + nx] - ii[..., :ny, b:b + nx]
-                - ii[..., b:b + ny, :nx] + ii[..., :ny, :nx]) / (b * b)
-    elif method == "median":
-        stat = _median_zero_padded(img, block_size)
-    else:
-        raise ValueError(f"unknown method {method!r}")
-    return stat - offset
+    with timed_stage("Local threshold"):
+        img = on_device(image, resolve_device(device, image))
+        if method == "gaussian":
+            sigma = (block_size - 1) / 6.0
+            stat = gaussian_filter(img, sigma=sigma)
+        elif method == "mean":
+            r = block_size // 2
+            ny, nx = img.shape[-2], img.shape[-1]
+            p = torch.index_select(img, -2,
+                                   _symmetric_index(ny, r, img.device))
+            p = torch.index_select(p, -1,
+                                   _symmetric_index(nx, r, img.device))
+            ii = torch.cumsum(torch.cumsum(p, dim=-2), dim=-1)
+            ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
+            b = block_size
+            stat = (ii[..., b:b + ny, b:b + nx] - ii[..., :ny, b:b + nx]
+                    - ii[..., b:b + ny, :nx] + ii[..., :ny, :nx]) / (b * b)
+        elif method == "median":
+            stat = _median_zero_padded(img, block_size)
+        else:
+            raise ValueError(f"unknown method {method!r}")
+        return stat - offset
 
 
 def _shift(m: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -170,14 +180,17 @@ def skeletonize(mask, max_iter: int = 256, device=None) -> torch.Tensor:
     ``CHECK_EVERY`` sweeps.  Input: 2-D 0/1 or boolean; output in the
     input's dtype (host arrays: ``on_device``'s).
     """
-    img = on_device(mask, resolve_device(device, mask))
-    m = img > 0
-    done = 0
-    while done < max_iter:
-        for _ in range(min(CHECK_EVERY, max_iter - done)):
-            before, m = m, _zhang_suen_sweep(m)
-            done += 1
-        # the last sweep changed nothing: the mask is a fixed point
-        if not bool((m != before).any()):
-            break
-    return m.to(img.dtype)
+    global SWEEPS
+    with timed_stage("Skeletonize"):
+        img = on_device(mask, resolve_device(device, mask))
+        m = img > 0
+        done = 0
+        while done < max_iter:
+            for _ in range(min(CHECK_EVERY, max_iter - done)):
+                before, m = m, _zhang_suen_sweep(m)
+                done += 1
+                SWEEPS += 1
+            # the last sweep changed nothing: the mask is a fixed point
+            if not bool((m != before).any()):
+                break
+        return m.to(img.dtype)

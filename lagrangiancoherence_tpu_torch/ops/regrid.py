@@ -20,9 +20,18 @@ __all__ = ["regrid_linear_nearest"]
 
 def _axis_weights(src: np.ndarray, dst: np.ndarray):
     """For each dst coordinate: bracketing src indices, linear weight, and an
-    in-hull mask; plus the nearest src index (ties resolve to the lower index,
-    matching xarray/pandas nearest reindex)."""
-    src = np.asarray(src, dtype=np.float64)
+    in-hull mask; plus the nearest src index (ties resolve to the lower
+    coordinate, matching xarray/pandas nearest reindex).  ``src`` may run in
+    either order, as xarray's ``interp`` takes it (an ERA5 record's
+    latitudes descend): the brackets are found on the ascending coordinates
+    and mapped back to ``src``'s own indices."""
+    order = np.argsort(np.asarray(src, dtype=np.float64), kind="stable")
+    lo, hi, t, inside, nearest = _ascending_weights(
+        np.asarray(src, dtype=np.float64)[order], dst)
+    return order[lo], order[hi], t, inside, order[nearest]
+
+
+def _ascending_weights(src: np.ndarray, dst: np.ndarray):
     dst = np.asarray(dst, dtype=np.float64)
     n = src.shape[0]
     hi = np.searchsorted(src, dst, side="left")

@@ -215,19 +215,28 @@ def test_chip_smoke_oracle_matches_package_oracle():
 
 
 def test_chip_smoke_area_winds_match_the_example():
-    """Phase 8b's winds are the example's closed forms (it may not import
-    the example, which imports the JAX package) at 0.25 degrees."""
+    """Phase 8b's fields are the port's example's own (``synthetic_era5``,
+    which its case runs on) at 0.25 degrees over the example's box: the JAX
+    example's closed forms, so the moisture-flux winds too."""
     import runpy
+    from lagrangiancoherence_tpu_torch.examples import area_of_influence
     example = runpy.run_path(str(REPO / "examples" / "area_of_influence.py"))
-    lats, lons, times, u, v = _chip_smoke().era5_box_winds()
-    assert (u.shape, np.diff(lats).max(), np.diff(lons).min()) == \
-        ((16, 221, 233), 0.25, 0.25)
-    data = example["synthetic_era5"](nt=16, ny=221, nx=233)
-    np.testing.assert_array_equal(data["viwve"].coords["latitude"], lats)
-    np.testing.assert_array_equal(data["viwve"].coords["time"], times)
-    np.testing.assert_allclose(u, (data["viwve"] / data["tcwv"]).data,
-                               rtol=1e-15)
-    np.testing.assert_allclose(v, (data["viwvn"] / data["tcwv"]).data,
+    cs = _chip_smoke()
+    got = area_of_influence.synthetic_era5(nt=cs.AREA_NT, ny=cs.AREA_BOX[0],
+                                           nx=cs.AREA_BOX[1])
+    lats = got["viwve"].coords["latitude"]
+    lons = got["viwve"].coords["longitude"]
+    assert (got["viwve"].shape, np.diff(lats).max(), np.diff(lons).min()) \
+        == ((16, 221, 233), 0.25, 0.25)
+    want = example["synthetic_era5"](nt=16, ny=221, nx=233)
+    for k in want:
+        np.testing.assert_array_equal(got[k].data, want[k].data)
+    np.testing.assert_array_equal(lats, want["viwve"].coords["latitude"])
+    np.testing.assert_array_equal(
+        got["viwve"].coords["time"],
+        want["viwve"].coords["time"].astype("datetime64[ns]"))
+    np.testing.assert_allclose((got["viwve"] / got["tcwv"]).data,
+                               (want["viwve"] / want["tcwv"]).data,
                                rtol=1e-15)
 
 
