@@ -26,7 +26,9 @@ kernels per field, idle share).  Then
 it drives the user-facing paths through the fused step: phase 8 runs
 ``LCS(isglobal=True, truncation=20)`` (the CLI's defaults) on the flagship
 winds — regrid to the common 0.5-degree grid, T20 truncation, SETTLS-4, the
-float64 FTLE; a first and a second call timed by stage — phase 8c the same
+float64 FTLE; a first and a second call timed by stage, the second on the
+winds stored in ERA5's latitude order, 90 -> -90, with an identical FTLE and
+one crossing to the card a wind component (``api.TRANSFERS``) — phase 8c the same
 facade with ``resample="12h"`` and ``parcel_propagation(return_traj=True)``
 on those winds labelled from 2300 by the port's CF decoder (NCEP's
 ``"hours since 1800-1-1 00:00:0.0"``), outside datetime64[ns]'s range, with a
@@ -86,6 +88,7 @@ line; ``--prefilter`` runs phase 3d alone after the build.  ``--area``
 runs phase 8b alone, twice in one process, and prints no result line: its
 second pass shows the workflow's times without the first-use costs (kernel
 build, CUDA module loading, FFT plans) that the first pass of a process pays.
+``--facade`` runs phase 8 alone and prints no result line.
 
 This script imports neither JAX nor the JAX package: phase 5's oracle is
 the port's ``testing/oracle.py``, a plain numpy/scipy statement of the
@@ -829,10 +832,15 @@ def area_uncertain(ftle, ev, ridges, lats, lons, max_steps=128):
 
 def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
     """Phase 8: ``LCS(isglobal=True)`` at the CLI's defaults on the flagship
-    winds, through the fused step.  Returns its launches in the facade's
-    run, and the winds regridded and truncated on the card."""
+    winds, through the fused step, then on the same winds stored as ERA5
+    stores them (latitude 90 -> -90): the record crosses to the card once
+    a wind component and only the FTLE comes back (``api.TRANSFERS``), and
+    the FTLE is identical to the ascending record's.  Returns its launches
+    in the facade's run, and the winds regridded and truncated on the
+    card."""
     import torch
     from lagrangiancoherence_tpu_torch import LCS, Field, parcel_propagation
+    from lagrangiancoherence_tpu_torch import api
     from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
                                                    COMMON_GRID_LONS)
     from lagrangiancoherence_tpu_torch.bench import launch_counts
@@ -851,12 +859,17 @@ def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
     expected = NT - 1
     sync()
     reset_counts()
+    api.reset_transfers()
     t0 = time.perf_counter()
     with StageClock() as clock:
         out = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
             u=U, v=V, verbose=False, isglobal=True, truncation=TRUNCATION)
     wall = (time.perf_counter() - t0) * 1e3
     by_path["phase 8 facade"] = c = launch_counts()
+    one_crossing = {"uploads": 2, "downloads": 1, "host_reorders": 0}
+    check(api.TRANSFERS == one_crossing,
+          f"facade transfers {json.dumps(api.TRANSFERS)} == "
+          f"{json.dumps(one_crossing)}")
     launches, k1 = c["settls_step"], c["spline_gather"]
     log("facade stages, first call (ms): " + json.dumps(
         {k: round(v, 3) for k, v in clock.ms.items()})
@@ -906,16 +919,28 @@ def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
           f"kernel='torch' identical={same}")
 
     # a CLI run is one process per file, so it pays the first call's
-    # set-up (SHT operators, cuFFT plans); a second call shows the rest
+    # set-up (SHT operators, cuFFT plans); a second call shows the rest.
+    # It takes the record in ERA5's order, latitude 90 -> -90, as a file
+    # stores it: ordered on the card, the same FTLE bit for bit
+    era5 = {"time": times, "latitude": grid.lats[::-1],
+            "longitude": grid.lons}
+    Ue, Ve = (Field(np.ascontiguousarray(a[:, ::-1]), DIMS3, era5, name=n)
+              for a, n in ((u64, "u"), (v64, "v")))
     sync()
+    api.reset_transfers()
     t0 = time.perf_counter()
     with StageClock() as clock:
-        LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
-            u=U, v=V, verbose=False, isglobal=True, truncation=TRUNCATION)
+        era5_out = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
+            u=Ue, v=Ve, verbose=False, isglobal=True, truncation=TRUNCATION)
     wall = (time.perf_counter() - t0) * 1e3
-    log("facade stages, second call (ms): " + json.dumps(
+    log("facade stages, second call, ERA5's order (ms): " + json.dumps(
         {k: round(v, 3) for k, v in clock.ms.items()})
         + f", wall {wall:.3f} ms [{card}]")
+    digest = hashlib.sha256(out.data.tobytes()).hexdigest()
+    check(api.TRANSFERS == one_crossing
+          and np.array_equal(era5_out.data, out.data, equal_nan=True),
+          f"ERA5's order: transfers {json.dumps(api.TRANSFERS)}, FTLE "
+          f"identical to the ascending record's (sha256 {digest})")
     return launches, truncated
 
 
@@ -1817,6 +1842,13 @@ def main() -> int:
         for _ in range(2):
             phase_area(dev, card, check, torch.cuda.synchronize)
         log(f"chip_smoke --area: {len(failures)} check(s) failed")
+        return 1 if failures else 0
+    if "--facade" in sys.argv[1:]:
+        grid = global_quarter_degree_grid()
+        u64, v64 = bench_winds(grid, NT, np.float64)
+        phase_facade(dev, card, check, torch.cuda.synchronize, u64, v64,
+                     grid, {})
+        log(f"chip_smoke --facade: {len(failures)} check(s) failed")
         return 1 if failures else 0
 
     # -- 2. build ------------------------------------------------------------

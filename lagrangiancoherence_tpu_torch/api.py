@@ -5,9 +5,11 @@ constructor/call contract of the reference class
 (LagrangianCoherence LCS/LCS.py:19-168) and ``parcel_propagation`` that of
 the reference integrator entry point (LagrangianCoherence
 LCS/trajectory.py:8-18).  Labeled coordinates stop at this file: ``Field``
-holds host numpy arrays, the stages below receive tensors on ``device``, and
-each stage's result comes back to the host where the JAX facade calls
-``np.asarray``.
+holds host numpy arrays, the stages below receive tensors on ``device``.  A
+record crosses to the device once, in the order it is stored, and is put in
+ascending latitude and longitude there; it stays a tensor through the
+regrid, the truncation, the propagation and the deformation, and only what
+the caller receives comes back to the host (``TRANSFERS`` counts both ways).
 
 Differences from the reference, by design (as in the JAX package):
 
@@ -31,6 +33,7 @@ JAX package's pandas keeps it (``utils/times.py``), so records outside
 """
 from __future__ import annotations
 
+import logging
 import re
 
 import numpy as np
@@ -60,8 +63,20 @@ def create_arrays_list(field, groupdim: str = "points"):
             for i in range(field.shape[ax])]
 
 
-# the span of each ascending sort of a record's coordinates on the host
+# the span that puts a record in ascending latitude and longitude
 SORT_SPAN = "Sort to ascending coordinates"
+
+# Copies of a record's data between the host and the device, counted as
+# ``cuda_prefilter.LAUNCHES`` counts launches: "uploads" are record-sized
+# copies to the device, "downloads" arrays copied back to the host,
+# "host_reorders" copies that reorder data on the host (a record not stored
+# as (time, latitude, longitude); the debug log's first level).
+TRANSFERS = {"uploads": 0, "downloads": 0, "host_reorders": 0}
+
+
+def reset_transfers() -> None:
+    for k in TRANSFERS:
+        TRANSFERS[k] = 0
 
 COMMON_GRID_LATS = np.linspace(-89.75, 89.75, 180 * 2)
 COMMON_GRID_LONS = np.linspace(-180, 179.5, 360 * 2 + 1)
@@ -198,6 +213,50 @@ def latlonsel(field: Field, latitude=None, longitude=None,
 
 
 # ---------------------------------------------------------------------------
+# The record on the device
+# ---------------------------------------------------------------------------
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host record on ``device`` in ``torch.get_default_dtype()``, in the
+    order it is stored, by one copy.  On the card the cast lands in
+    page-locked staging, which the host allocator hands back for the next
+    record of the same size, and goes up from there; elsewhere it is
+    ``on_device``'s copy (none on the CPU where the dtype matches)."""
+    TRANSFERS["uploads"] += 1
+    TRANSFERS["host_reorders"] += not a.flags.c_contiguous
+    dtype = torch.get_default_dtype()
+    if device.type != "cuda":
+        return on_device(a, device, dtype)
+    staged = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+    staged.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return staged.to(device)
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    TRANSFERS["downloads"] += 1
+    return t.cpu().numpy()
+
+
+def _ascending_on_device(f: Field, device: torch.device):
+    """``f`` (time, latitude, longitude) uploaded as stored and put in
+    ascending latitude and longitude on ``device``: the host sorts only the
+    coordinates (``np.argsort`` as ``Field.sortby`` does), the device
+    gathers along each axis that does not ascend already.  Returns the
+    tensor and the sorted latitudes and longitudes."""
+    t = _upload(f.data, device)
+    coords = []
+    for axis, dim in ((-2, "latitude"), (-1, "longitude")):
+        c = f.coords[dim]
+        order = np.argsort(c, kind="stable")
+        if not np.array_equal(order, np.arange(c.shape[0])):
+            t = torch.index_select(t, axis, torch.as_tensor(order,
+                                                            device=device))
+            c = c[order]
+        coords.append(c)
+    return (t, *coords)
+
+
+# ---------------------------------------------------------------------------
 # parcel_propagation — reference signature facade over the SETTLS loop
 # ---------------------------------------------------------------------------
 
@@ -217,26 +276,31 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
     """
     configure_verbosity(verbose)
     device = resolve_device(device)
-    with timed_stage(SORT_SPAN):
-        U = as_field(U).sortby("longitude").sortby("latitude")
-        V = as_field(V).sortby("longitude").sortby("latitude")
     order = (propdim, "latitude", "longitude")
-    U = U.transpose(*order)
-    V = V.transpose(*order)
+    U = as_field(U).transpose(*order)
+    V = as_field(V).transpose(*order)
+    with timed_stage(SORT_SPAN):
+        u, lats, lons = _ascending_on_device(U, device)
+        v = _ascending_on_device(V, device)[0]
+    px, py = _propagate(u, v, timestep, lats, lons, cyclic_xboundary,
+                        SETTLS_order=SETTLS_order, interp_order=interp_order,
+                        return_traj=return_traj, kernel=kernel,
+                        verbose=verbose, device=device)
+    return _positions(px, py, lats, lons, U.coords[propdim], timestep,
+                      propdim, return_traj)
 
-    lats = U.coords["latitude"]
-    lons = U.coords["longitude"]
+
+def _propagate(u: torch.Tensor, v: torch.Tensor, timestep, lats, lons,
+               cyclic_xboundary: bool, *, SETTLS_order, interp_order,
+               return_traj: bool, kernel: str, verbose: bool,
+               device: torch.device):
+    """The SETTLS loop on winds already on ``device`` in ascending
+    latitude and longitude: departure points (or trajectories) as
+    tensors there."""
     grid = Grid(lats=lats, lons=lons, cyclic_x=cyclic_xboundary)
-
-    times = list(U.coords[propdim])
-    if timestep < 0:
-        times = times[::-1]  # labels reverse; storage order does not (Q2)
-
     with timed_stage("Parcel propagation"):
-        dtype = torch.get_default_dtype()
         px, py, overflow = parcel_propagation_core(
-            on_device(U.data, device, dtype), on_device(V.data, device, dtype),
-            float(timestep), grid,
+            u, v, float(timestep), grid,
             settls_order=int(SETTLS_order),
             interp_order=int(interp_order),
             return_traj=return_traj,
@@ -251,9 +315,16 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
                 "windowed gathers clamped some taps (extreme shear); "
                 "affected tiles are approximate — re-run with the default "
                 "engine for exact values")
-        px = px.cpu().numpy()
-        py = py.cpu().numpy()
+    return px, py
 
+
+def _positions(px: torch.Tensor, py: torch.Tensor, lats, lons, times,
+               timestep, propdim: str, return_traj: bool):
+    """Departure points (or trajectories) copied to the host as the
+    reference's ``(positions_x, positions_y)`` Fields."""
+    times = list(times)
+    if timestep < 0:
+        times = times[::-1]  # labels reverse; storage order does not (Q2)
     coords2d = {"latitude": lats, "longitude": lons}
     if return_traj:
         # 360-day-calendar guard (LagrangianCoherence LCS/trajectory.py:
@@ -265,11 +336,15 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
             "cftime.Datetime360Day.")
         tcoord = as_labels(times)
         dims = (propdim, "latitude", "longitude")
-        fx = Field(px, dims, {**coords2d, propdim: tcoord}, name="positions_x")
-        fy = Field(py, dims, {**coords2d, propdim: tcoord}, name="positions_y")
+        fx = Field(_download(px), dims, {**coords2d, propdim: tcoord},
+                   name="positions_x")
+        fy = Field(_download(py), dims, {**coords2d, propdim: tcoord},
+                   name="positions_y")
         return fx, fy
-    fx = Field(px, ("latitude", "longitude"), dict(coords2d), name="positions_x")
-    fy = Field(py, ("latitude", "longitude"), dict(coords2d), name="positions_y")
+    fx = Field(_download(px), ("latitude", "longitude"), dict(coords2d),
+               name="positions_x")
+    fy = Field(_download(py), ("latitude", "longitude"), dict(coords2d),
+               name="positions_y")
     fx = fx.assign_coords(**{propdim: times[-1]})
     fy = fy.assign_coords(**{propdim: times[-1]})
     return fx, fy
@@ -345,60 +420,73 @@ class LCS:
                     timestep = float(np.sign(timestep)) * float(
                         (tvals[1] - tvals[0]) / np.timedelta64(1, "s"))
 
+            dev = self.device
+            regrid = isglobal and interp_to_common_grid
             with timed_stage(SORT_SPAN):
-                u = u.sortby("latitude").sortby("longitude")
-                v = v.sortby("latitude").sortby("longitude")
+                # the host sorts coordinates only.  Where the regrid
+                # follows, its index tables read the record in the order
+                # it is stored; elsewhere the record goes up as stored and
+                # is put in order on the device.
+                if not regrid:
+                    ut, lats, lons = _ascending_on_device(u, dev)
+                    vt = _ascending_on_device(v, dev)[0]
 
             if isglobal:
-                if interp_to_common_grid:
+                if regrid:
                     with timed_stage("Regrid to common global grid"):
-                        u = self._to_common_grid(u, timedim, self.device)
-                        v = self._to_common_grid(v, timedim, self.device)
+                        ut = self._to_common_grid(u, dev)
+                        vt = self._to_common_grid(v, dev)
+                    lats, lons = COMMON_GRID_LATS, COMMON_GRID_LONS
                 if truncation is not None:
                     with timed_stage(f"Spectral truncation T{truncation}"):
-                        lats = u.coords["latitude"]
-                        u = u.copy(data=sht_truncate(
-                            u.data, lats, truncation, device=self.device
-                        ).cpu().numpy())
-                        v = v.copy(data=sht_truncate(
-                            v.data, lats, truncation, device=self.device
-                        ).cpu().numpy())
+                        ut = sht_truncate(ut, lats, truncation, device=dev)
+                        vt = sht_truncate(vt, lats, truncation, device=dev)
                 cyclic_xboundary = True
                 self.subdomain = None
             else:
                 cyclic_xboundary = False
 
-            if s is None:
+            if s is None and logger.isEnabledFor(logging.DEBUG):
                 # The reference computes-and-prints an unused smoothing
                 # factor (LagrangianCoherence LCS/LCS.py:124-126, SURVEY.md
-                # Q7); it is logged at debug level and nothing consumes it.
-                first = u.isel({timedim: 0})
-                s = int(10 * first.data.size * first.std())
+                # Q7); nothing consumes it, so it is computed only where it
+                # is logged, from the first level as the record stands:
+                # regridded or truncated on the device, else the input's
+                # values in ascending order.
+                if regrid or (isglobal and truncation is not None):
+                    first = _download(ut[0])
+                else:
+                    level = u.isel({timedim: 0})
+                    sorted_level = level.sortby("latitude").sortby(
+                        "longitude")
+                    TRANSFERS["host_reorders"] += sorted_level is not level
+                    first = sorted_level.data
+                s = int(10 * first.size * float(np.nanstd(first)))
                 logger.debug("legacy smoothing factor s = %s (unused)", s)
 
-            x_departure, y_departure = parcel_propagation(
-                u, v, timestep, propdim=timedim, verbose=verbose,
+            px, py = _propagate(
+                ut, vt, timestep, lats, lons, cyclic_xboundary,
                 SETTLS_order=self.SETTLS_order,
-                cyclic_xboundary=cyclic_xboundary, return_traj=return_traj,
-                interp_order=traj_interp_order, copy=True, kernel=self.kernel,
-                device=self.device)
+                interp_order=traj_interp_order, return_traj=return_traj,
+                kernel=self.kernel, verbose=verbose, device=dev)
+            times = u.coords[timedim]
 
             if return_traj:
-                x_trajs, y_trajs = x_departure, y_departure
+                x_trajs, y_trajs = _positions(px, py, lats, lons, times,
+                                              timestep, timedim, True)
                 x_departure = x_trajs.isel({timedim: -1})
                 y_departure = y_trajs.isel({timedim: -1})
+                px, py = px[-1], py[-1]
+            elif self.return_dpts:
+                x_departure, y_departure = _positions(
+                    px, py, lats, lons, times, timestep, timedim, False)
 
             with timed_stage("Deformation tensor + eigenvalues"):
-                lats = x_departure.coords["latitude"]
-                lons = x_departure.coords["longitude"]
                 grid = Grid(lats=lats, lons=lons)
-                norm = ftle_from_departures(
-                    on_device(x_departure.data, self.device, torch.float64),
-                    on_device(y_departure.data, self.device, torch.float64),
-                    grid, sigma=self.gauss_sigma,
-                    compat=self.compat).cpu().numpy()
+                norm = _download(ftle_from_departures(
+                    px.to(torch.float64), py.to(torch.float64), grid,
+                    sigma=self.gauss_sigma, compat=self.compat))
 
-            times = u.coords[timedim]
             timestamp = times[-1] if np.sign(timestep) == 1 else times[0]
             eigenvalues = Field(
                 norm, ("latitude", "longitude"),
@@ -424,12 +512,10 @@ class LCS:
             return eigenvalues
 
     @staticmethod
-    def _to_common_grid(f: Field, timedim: str, device=None) -> Field:
-        data = regrid_linear_nearest(
-            f.data, f.coords["latitude"], f.coords["longitude"],
-            COMMON_GRID_LATS, COMMON_GRID_LONS, device=device).cpu().numpy()
-        return Field(data, (timedim, "latitude", "longitude"),
-                     {timedim: f.coords[timedim],
-                      "latitude": COMMON_GRID_LATS,
-                      "longitude": COMMON_GRID_LONS},
-                     name=f.name)
+    def _to_common_grid(f: Field, device: torch.device) -> torch.Tensor:
+        """``f`` uploaded as stored and regridded on ``device``: the
+        regrid's index tables read the source in either order."""
+        return regrid_linear_nearest(
+            _upload(f.data, device), f.coords["latitude"],
+            f.coords["longitude"], COMMON_GRID_LATS, COMMON_GRID_LONS,
+            device=device)

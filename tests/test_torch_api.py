@@ -619,3 +619,185 @@ class TestIO:
         np.testing.assert_array_equal(
             np.asarray(g.coords["time"]).astype("datetime64[ns]"),
             f.coords["time"])
+
+
+# ---------------------------------------------------------------------------
+# The record on the device: ordered there, one crossing each way
+# ---------------------------------------------------------------------------
+
+ERA5_LATS = np.linspace(87.5, -87.5, 36)        # descending, as ERA5 stores
+ERA5_LONS = np.linspace(-180.0, 175.0, 72)
+LON_SHUFFLE = np.random.RandomState(5).permutation(ERA5_LONS.size)
+
+
+def era5_record(shuffle_lons=False, nt=3):
+    """Port Fields of a smooth global wind record with latitude descending
+    (90 -> -90, ERA5's order), longitudes ascending or shuffled."""
+    lats = ERA5_LATS
+    lons = ERA5_LONS[LON_SHUFFLE] if shuffle_lons else ERA5_LONS
+    la, lo = np.deg2rad(lats)[:, None], np.deg2rad(lons)[None, :]
+    t = np.arange(nt)[:, None, None]
+    u = 15 * np.cos(la) + 4 * np.sin(2 * lo + 0.3 * t) * np.cos(la) ** 2
+    v = 3 * np.cos(3 * lo - 0.2 * t) * np.cos(la) * np.sin(2 * la)
+    times = np.datetime64("2001-01-01", "ns") \
+        + np.arange(nt) * np.timedelta64(6, "h")
+    coords = dict(time=times, latitude=lats, longitude=lons)
+    return (Field(u, DIMS, coords, name="u"),
+            Field(v, DIMS, dict(coords), name="v"))
+
+
+def sorted_beforehand(f):
+    """What the facade sorted on the host before: ``Field.sortby``."""
+    return f.sortby("latitude").sortby("longitude")
+
+
+def assert_same_fields(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.name == w.name and g.dims == w.dims
+        assert g.data.dtype == w.data.dtype
+        assert np.array_equal(g.data, w.data, equal_nan=True)
+        assert set(g.coords) == set(w.coords)
+        for k in w.coords:
+            assert np.asarray(g.coords[k]).dtype == \
+                np.asarray(w.coords[k]).dtype, k
+            assert np.array_equal(g.coords[k], w.coords[k]), k
+
+
+ORDER_CASES = (
+    [("lcs", dict(isglobal=False), mode) for mode in ("plain", "dpts",
+                                                       "traj")]
+    + [("lcs", dict(isglobal=True, interp_to_common_grid=g, truncation=t),
+        mode) for g in (True, False) for t in (20, None)
+       for mode in ("plain", "dpts", "traj")]
+    + [("propagation", dict(), mode) for mode in ("plain", "traj")])
+_SORTED_RESULTS = {}
+
+
+def _ordered_run(what, call, mode, U, V):
+    if what == "propagation":
+        return TA.parcel_propagation(
+            U, V, timestep=-6 * 3600, SETTLS_order=2, verbose=False,
+            cyclic_xboundary=True, return_traj=mode == "traj", device="cpu")
+    return TA.LCS(timestep=-6 * 3600, SETTLS_order=2,
+                  return_dpts=mode == "dpts", device="cpu")(
+        u=U, v=V, verbose=False, return_traj=mode == "traj", **call)
+
+
+@pytest.mark.parametrize("shuffle_lons", [False, True],
+                         ids=["lons_ascending", "lons_shuffled"])
+@pytest.mark.parametrize("what,call,mode", ORDER_CASES,
+                         ids=[f"{w}-{'-'.join(f'{k}={v}' for k, v in c.items())}"
+                              f"-{m}" for w, c, m in ORDER_CASES])
+def test_record_order_gives_identical_outputs(what, call, mode,
+                                              shuffle_lons):
+    """An ERA5-ordered record (latitude 90 -> -90, longitudes ascending or
+    shuffled), put in order on the device or read in its own order by the
+    regrid's tables, gives exactly the outputs of the same record sorted
+    ascending on the host beforehand, labels and coordinates included."""
+    key = (what, tuple(sorted(call.items())), mode)
+    if key not in _SORTED_RESULTS:
+        U, V = era5_record()
+        _SORTED_RESULTS[key] = _ordered_run(
+            what, call, mode, sorted_beforehand(U), sorted_beforehand(V))
+    U, V = era5_record(shuffle_lons)
+    assert_same_fields(_ordered_run(what, call, mode, U, V),
+                       _SORTED_RESULTS[key])
+
+
+def _snapshot(*fields):
+    return [(a, a.copy()) for f in fields
+            for a in (f.data, *f.coords.values())]
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("call", [
+    dict(isglobal=False), dict(isglobal=True, truncation=None,
+                               interp_to_common_grid=False),
+    dict(isglobal=True, truncation=20), "propagation"])
+def test_inputs_are_not_mutated(call, ascending):
+    """On the CPU a record of the default dtype is not copied on its way
+    to the device (``torch.as_tensor`` shares its memory): every host
+    array passed in is byte-identical after the call."""
+    U, V = era5_record(nt=3)
+    if ascending:
+        U, V = sorted_beforehand(U), sorted_beforehand(V)
+    before = _snapshot(U, V)
+    if call == "propagation":
+        TA.parcel_propagation(U, V, timestep=-6 * 3600, verbose=False,
+                              return_traj=True, cyclic_xboundary=True,
+                              device="cpu")
+    else:
+        TA.LCS(timestep=-6 * 3600, return_dpts=True, device="cpu")(
+            u=U, v=V, verbose=False, return_traj=True, **call)
+    for a, copy in before:
+        assert a.tobytes() == copy.tobytes()
+
+
+@pytest.mark.parametrize("call,dpts,want", [
+    (dict(isglobal=True, truncation=20), False, (2, 1, 0)),
+    (dict(isglobal=True, truncation=20), True, (2, 3, 0)),
+    (dict(isglobal=False), False, (2, 1, 0)),
+    (dict(isglobal=False), True, (2, 3, 0)),
+    ("transposed", False, (2, 1, 2)),
+    ("propagation", False, (2, 2, 0))])
+def test_transfer_counter(call, dpts, want):
+    """``api.TRANSFERS``: an ERA5-ordered record crosses up once a wind
+    component and nothing comes back but what the caller receives; no
+    host copy is reordered unless the record is stored in another order
+    than (time, latitude, longitude)."""
+    U, V = era5_record()
+    TA.reset_transfers()
+    if call == "propagation":
+        TA.parcel_propagation(U, V, timestep=-6 * 3600, verbose=False,
+                              device="cpu")
+    elif call == "transposed":
+        U, V = (Field(np.ascontiguousarray(np.moveaxis(f.data, 0, -1)),
+                      ("latitude", "longitude", "time"), f.coords,
+                      name=f.name) for f in (U, V))
+        TA.LCS(timestep=-6 * 3600, device="cpu")(u=U, v=V, verbose=False)
+    else:
+        TA.LCS(timestep=-6 * 3600, return_dpts=dpts, device="cpu")(
+            u=U, v=V, verbose=False, **call)
+    assert (TA.TRANSFERS["uploads"], TA.TRANSFERS["downloads"],
+            TA.TRANSFERS["host_reorders"]) == want, TA.TRANSFERS
+
+
+@pytest.mark.parametrize("call", [dict(isglobal=False),
+                                  dict(isglobal=True, truncation=20)])
+def test_legacy_smoothing_factor_is_logged_as_from_the_sorted_record(call):
+    """The unused smoothing factor, logged at debug level, reads the first
+    level of the sorted (and on the global path regridded and truncated)
+    record, as a host sort of the record gives it."""
+    U, V = era5_record()
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    h = Keep(logging.DEBUG)
+    level = logger.level
+    logger.addHandler(h)
+    logger.setLevel(logging.DEBUG)
+    try:
+        TA.reset_transfers()
+        TA.LCS(timestep=-6 * 3600, device="cpu")(u=U, v=V, verbose=False,
+                                                 **call)
+    finally:
+        logger.removeHandler(h)
+        logger.setLevel(level)
+    (line,) = [m for m in records if "smoothing factor" in m]
+    record = sorted_beforehand(U)
+    first = record.data[0]
+    if call["isglobal"]:
+        first = TA.sht_truncate(TA.regrid_linear_nearest(
+            record.data, record.coords["latitude"],
+            record.coords["longitude"], TA.COMMON_GRID_LATS,
+            TA.COMMON_GRID_LONS, device="cpu"),
+            TA.COMMON_GRID_LATS, 20, device="cpu").numpy()[0]
+    want = int(10 * first.size * float(np.nanstd(first)))
+    assert line == f"legacy smoothing factor s = {want} (unused)"
+    assert TA.TRANSFERS["host_reorders"] == (0 if call["isglobal"] else 1)

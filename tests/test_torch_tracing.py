@@ -203,16 +203,22 @@ def test_series_logs_each_stage_once():
 
 def test_lcs_call_logs_its_root_once():
     """One ``LCS`` call logs "LCS call" once, as the root of every span of
-    the call: both sorts, the propagation and the deformation."""
+    the call: the ordering (once: the propagation takes the ordered
+    tensors), on the global path the regrid and the truncation, the
+    propagation and the deformation."""
     U, V = _fields(nt=3)
-    with Records() as rec:
-        LCS(timestep=DT, SETTLS_order=1, device="cpu")(u=U, v=V,
-                                                        verbose=False)
-    names = rec.names()
-    assert names.count("LCS call") == 1
-    assert names.count("Sort to ascending coordinates") == 2
-    assert "Parcel propagation" in names
-    assert "Deformation tensor + eigenvalues" in names
-    (root,) = [r for r in rec.spans() if r.args[0] == "LCS call"]
-    assert root.parent_id is None and names[-1] == "LCS call"
-    assert {r.root_id for r in rec.spans()} == {root.span_id}
+    regional = ("Sort to ascending coordinates", "Parcel propagation",
+                "Deformation tensor + eigenvalues")
+    glob = regional + ("Regrid to common global grid",
+                       "Spectral truncation T10")
+    for call, stages in ((dict(), regional),
+                         (dict(isglobal=True, truncation=10), glob)):
+        with Records() as rec:
+            LCS(timestep=DT, SETTLS_order=1, device="cpu")(
+                u=U, v=V, verbose=False, **call)
+        names = rec.names()
+        assert sorted(names) == sorted(stages + ("LCS call",)), names
+        (root,) = [r for r in rec.spans() if r.args[0] == "LCS call"]
+        assert root.parent_id is None and names[-1] == "LCS call"
+        assert {r.root_id for r in rec.spans()} == {root.span_id}
+        assert {r.parent_id for r in rec.spans()} == {None, root.span_id}
