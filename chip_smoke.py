@@ -28,9 +28,10 @@ it drives the user-facing paths through the fused step: phase 8 runs
 winds — regrid to the common 0.5-degree grid, T20 truncation, SETTLS-4, the
 float64 FTLE; a first and a second call timed by stage, the second on the
 winds stored in ERA5's latitude order, 90 -> -90, with an identical FTLE and
-one crossing to the card a wind component (``api.TRANSFERS``) — phase 8c the same
-facade with ``resample="12h"`` and ``parcel_propagation(return_traj=True)``
-on those winds labelled from 2300 by the port's CF decoder (NCEP's
+one crossing to the card a wind component (``devices.TRANSFERS``) — phase 8c
+the same facade with ``resample="12h"`` and
+``parcel_propagation(return_traj=True)`` on those winds labelled from 2300
+by the port's CF decoder (NCEP's
 ``"hours since 1800-1-1 00:00:0.0"``), outside datetime64[ns]'s range, with a
 resample alias pandas 3 removed refused before any launch — and phase 8b one
 area-of-influence case (LagrangianCoherence LCS/area_of_influence.py, as
@@ -42,7 +43,9 @@ then ``find_area`` each held against the same call in float64 on the CPU.
 Phase 9 runs ``ftle_series`` over a
 36-level record on the flagship grid (4 windows, each identical to
 ``ftle_pipeline`` on its slice, and again through a ``batch_mesh`` of the
-card twice); phase 10 the latitude-block pipeline's
+card twice, and on the record stored in ERA5's order, identical, with
+``devices.TRANSFERS`` counting one crossing a wind component); phase 10
+the latitude-block pipeline's
 ``parcel_propagation_sharded`` (1 and 4 blocks, and 2x2 with longitude
 blocks) and ``ftle_sharded`` (4 blocks, with and without ``sigma``) on a
 mesh of the card repeated, each identical to the whole-grid run, and both
@@ -88,7 +91,8 @@ line; ``--prefilter`` runs phase 3d alone after the build.  ``--area``
 runs phase 8b alone, twice in one process, and prints no result line: its
 second pass shows the workflow's times without the first-use costs (kernel
 build, CUDA module loading, FFT plans) that the first pass of a process pays.
-``--facade`` runs phase 8 alone and prints no result line.
+``--facade`` runs phases 8, 8c and 9 alone, every path on which a host
+record crosses to the card, and prints no result line.
 
 This script imports neither JAX nor the JAX package: phase 5's oracle is
 the port's ``testing/oracle.py``, a plain numpy/scipy statement of the
@@ -561,8 +565,7 @@ def k1_loop_field(u, v, grid, state, dt, stages=None):
             clock.append(time.perf_counter())
             stages[name] = (clock[-1] - clock[-2]) * 1e3
 
-    mats = (state["prefilter_y"], state["prefilter_x"])
-    cu, cv = (prefilter(a, order=ORDER, matrices=mats) for a in (u, v))
+    cu, cv = (prefilter(a, order=ORDER) for a in (u, v))
     lap("prefilter_ms")
     W = torch.stack([u, v], dim=1).reshape(2 * T, ny, nx)
     CW = torch.stack([cu, cv], dim=1).reshape(2 * T, ny, nx)
@@ -623,10 +626,9 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold,
               + ("" if same else f"; max|d|={err:.3e} at (x, y) "
                  f"{[r[2] for r in res]}"))
 
-    def stacks(u, v, order, state):
+    def stacks(u, v, order):
         T, ny, nx = u.shape
-        mats = (state["prefilter_y"], state["prefilter_x"])
-        cu, cv = (prefilter(a, order=order, matrices=mats) for a in (u, v))
+        cu, cv = (prefilter(a, order=order) for a in (u, v))
         return (torch.stack([u, v], dim=1).reshape(2 * T, ny, nx),
                 torch.stack([cu, cv], dim=1).reshape(2 * T, ny, nx),
                 interleave(cu, cv))
@@ -635,9 +637,9 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold,
         name = str(dtype).replace("torch.", "")
         u, v = u32.to(dtype), v32.to(dtype)
         dt = torch.full((), DT, dtype=dtype, device=dev)
+        state = grid_state(grid, dtype=dtype, device=dev)
         for order in sorted({c[4] for c in cases}, reverse=True):
-            state = grid_state(grid, order, dtype=dtype, device=dev)
-            W, CW, CI = stacks(u, v, order, state)
+            W, CW, CI = stacks(u, v, order)
             for label, cx, cy, t, o in cases:
                 if o != order:
                     continue
@@ -651,8 +653,7 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold,
             del W, CW, CI
         # blocks of a 4-block latitude mesh (181 rows each, the last with 3
         # reflected pad rows), an interior band and an x-block
-        state = grid_state(grid, ORDER, dtype=dtype, device=dev)
-        W, CW, CI = stacks(u, v, ORDER, state)
+        W, CW, CI = stacks(u, v, ORDER)
         kw = step_kw(grid)
         home = torch.tensor(block_layout(grid, 4)["home_idx"],
                             dtype=torch.int32, device=dev)
@@ -689,8 +690,8 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold,
         vf = torch.stack([0.5 * fu, 0.3 * fu + 1.0])
         for cyclic in (True, False):
             g = Grid(lats=lats, lons=lons, cyclic_x=cyclic)
-            state = grid_state(g, ORDER, dtype=dtype, device=dev)
-            W, CW, CI = stacks(uf, vf, ORDER, state)
+            state = grid_state(g, dtype=dtype, device=dev)
+            W, CW, CI = stacks(uf, vf, ORDER)
             kw = step_kw(g)
             px, py = state["px0"], state["py0"]
             want = settls_step_torch(W, CW, px, py, state["conv_x"], dt, 0,
@@ -707,6 +708,8 @@ def phase_step_parity(dev, card, check, grid, u32, v32, cases, fold,
 # ---------------------------------------------------------------------------
 
 DIMS3 = ("time", "latitude", "longitude")
+# a facade call's crossings: a wind component up each, the FTLE back
+ONE_CROSSING = {"uploads": 2, "downloads": 1, "host_reorders": 0}
 TRUNCATION = 20          # the CLI's default
 # max |card - CPU| / max |CPU| of the float32 regrid and truncation on the
 # card against the float64 versions on the CPU
@@ -834,16 +837,16 @@ def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
     """Phase 8: ``LCS(isglobal=True)`` at the CLI's defaults on the flagship
     winds, through the fused step, then on the same winds stored as ERA5
     stores them (latitude 90 -> -90): the record crosses to the card once
-    a wind component and only the FTLE comes back (``api.TRANSFERS``), and
+    a wind component and only the FTLE comes back (``devices.TRANSFERS``), and
     the FTLE is identical to the ascending record's.  Returns its launches
     in the facade's run, and the winds regridded and truncated on the
     card."""
     import torch
     from lagrangiancoherence_tpu_torch import LCS, Field, parcel_propagation
-    from lagrangiancoherence_tpu_torch import api
     from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
                                                    COMMON_GRID_LONS)
     from lagrangiancoherence_tpu_torch.bench import launch_counts
+    from lagrangiancoherence_tpu_torch.devices import TRANSFERS
     from lagrangiancoherence_tpu_torch.ops.regrid import \
         regrid_linear_nearest
     from lagrangiancoherence_tpu_torch.ops.sht import truncate
@@ -859,17 +862,15 @@ def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
     expected = NT - 1
     sync()
     reset_counts()
-    api.reset_transfers()
     t0 = time.perf_counter()
     with StageClock() as clock:
         out = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
             u=U, v=V, verbose=False, isglobal=True, truncation=TRUNCATION)
     wall = (time.perf_counter() - t0) * 1e3
     by_path["phase 8 facade"] = c = launch_counts()
-    one_crossing = {"uploads": 2, "downloads": 1, "host_reorders": 0}
-    check(api.TRANSFERS == one_crossing,
-          f"facade transfers {json.dumps(api.TRANSFERS)} == "
-          f"{json.dumps(one_crossing)}")
+    check(TRANSFERS == ONE_CROSSING,
+          f"facade transfers {json.dumps(TRANSFERS)} == "
+          f"{json.dumps(ONE_CROSSING)}")
     launches, k1 = c["settls_step"], c["spline_gather"]
     log("facade stages, first call (ms): " + json.dumps(
         {k: round(v, 3) for k, v in clock.ms.items()})
@@ -927,7 +928,7 @@ def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
     Ue, Ve = (Field(np.ascontiguousarray(a[:, ::-1]), DIMS3, era5, name=n)
               for a, n in ((u64, "u"), (v64, "v")))
     sync()
-    api.reset_transfers()
+    reset_counts()
     t0 = time.perf_counter()
     with StageClock() as clock:
         era5_out = LCS(timestep=DT, SETTLS_order=SETTLS_ORDER, device=dev)(
@@ -937,9 +938,9 @@ def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
         {k: round(v, 3) for k, v in clock.ms.items()})
         + f", wall {wall:.3f} ms [{card}]")
     digest = hashlib.sha256(out.data.tobytes()).hexdigest()
-    check(api.TRANSFERS == one_crossing
+    check(TRANSFERS == ONE_CROSSING
           and np.array_equal(era5_out.data, out.data, equal_nan=True),
-          f"ERA5's order: transfers {json.dumps(api.TRANSFERS)}, FTLE "
+          f"ERA5's order: transfers {json.dumps(TRANSFERS)}, FTLE "
           f"identical to the ascending record's (sha256 {digest})")
     return launches, truncated
 
@@ -965,6 +966,7 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
     from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
                                                    COMMON_GRID_LONS)
     from lagrangiancoherence_tpu_torch.bench import launch_counts
+    from lagrangiancoherence_tpu_torch.devices import TRANSFERS
     from lagrangiancoherence_tpu_torch.utils.io import _decode_times
     ny, nx = grid.shape
     log(f"== phase 8c: LCS(resample='12h', isglobal=True) and "
@@ -1018,17 +1020,19 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
         log(f"LCS(resample='12h') labelled from {yr}: {wall:.3f} ms wall, "
             f"launches {json.dumps(c)} [{card}]")
         check(c["settls_step"] == steps and c["spline_prefilter"] == 2
-              and others(c) == 0,
+              and others(c) == 0 and TRANSFERS == ONE_CROSSING,
               f"{yr}: settls_step launches {c['settls_step']} == {steps}, "
               f"spline_prefilter {c['spline_prefilter']} == 2, other "
-              f"kernels {others(c)} == 0")
+              f"kernels {others(c)} == 0; transfers "
+              f"{json.dumps(TRANSFERS)}")
     a, b = ftle[2300], ftle[2020]
     inner = a.data[0, 5:-5]
     check(a.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
           and bool(np.isfinite(inner).all())
           and np.array_equal(a.data, b.data, equal_nan=True),
           f"FTLE labelled 2300: shape {a.shape}, rows [5:-5] finite, "
-          f"identical to the 2020 record's")
+          f"identical to the 2020 record's (sha256 "
+          f"{hashlib.sha256(a.data.tobytes()).hexdigest()})")
     # backward: the field is stamped with the window's first label
     check(seconds(np.asarray(a.coords["time"])) == want[:1],
           f"FTLE label {a.coords['time'][0]} == 2300-01-01T00")
@@ -1044,17 +1048,20 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
     launches += c["settls_step"]
     log(f"parcel_propagation(return_traj=True): {wall:.3f} ms wall, "
         f"launches {json.dumps(c)} [{card}]")
+    two_back = {**ONE_CROSSING, "downloads": 2}
     check(c["settls_step"] == NT - 1 and c["spline_prefilter"] == 2
-          and others(c) == 0,
+          and others(c) == 0 and TRANSFERS == two_back,
           f"trajectories: settls_step launches {c['settls_step']} == "
           f"{NT - 1}, spline_prefilter {c['spline_prefilter']} == 2, other "
-          f"kernels {others(c)} == 0")
+          f"kernels {others(c)} == 0; transfers {json.dumps(TRANSFERS)} == "
+          f"{json.dumps(two_back)}")
     labels = np.asarray(tx.coords["time"])
+    digest = hashlib.sha256(tx.data.tobytes() + ty.data.tobytes()).hexdigest()
     check(seconds(labels) == want[::-1]
           and np.array_equal(labels, ty.coords["time"])
           and bool(np.isfinite(tx.data).all() and np.isfinite(ty.data).all()),
           f"trajectories {tx.shape}: labels {labels[0]} .. {labels[-1]} == "
-          f"the 2300 instants reversed; positions finite")
+          f"the 2300 instants reversed; positions finite (sha256 {digest})")
 
     # (c) an alias pandas 3 removed raises before any launch
     U, V = winds(2300)
@@ -1282,13 +1289,17 @@ def phase_series(dev, card, check, grid, by_path):
     """Phase 9: ``ftle_series`` on the flagship grid (a ``SERIES_LEVELS``
     level record, window ``NT``, stride 1), each window against
     ``ftle_pipeline`` on the same slice, and through a ``batch_mesh`` of the
-    card twice.  Returns its ``settls_step`` launches."""
+    card twice.  The record crosses to the card once a wind component and
+    only the fields come back (``devices.TRANSFERS``); stored as ERA5
+    stores it (latitude 90 -> -90) it is put in order on the card and gives
+    the same fields bit for bit.  Returns its ``settls_step`` launches."""
     import torch
-    from lagrangiancoherence_tpu_torch import ftle_pipeline, ftle_series
+    from lagrangiancoherence_tpu_torch import Field, ftle_pipeline, ftle_series
     from lagrangiancoherence_tpu_torch.bench import event_ms, launch_counts
+    from lagrangiancoherence_tpu_torch.devices import TRANSFERS, upload
     from lagrangiancoherence_tpu_torch.ops import cuda_settls
     from lagrangiancoherence_tpu_torch.parallel.mesh import batch_mesh
-    from lagrangiancoherence_tpu_torch.runners import _prep_record, _upload
+    from lagrangiancoherence_tpu_torch.runners import AUTO_BATCH, _prep_record
     ny, nx = grid.shape
     U, V, u32, v32, times = series_winds(grid)
     starts = list(range(SERIES_LEVELS - NT + 1))
@@ -1304,6 +1315,12 @@ def phase_series(dev, card, check, grid, by_path):
     series = ftle_series(U, V, DT, device=dev, **kw)
     torch.cuda.synchronize()
     by_path["phase 9 series"] = c = launch_counts()
+    # each chunk of windows: its fields and its overflow words come back
+    series_crossing = dict(TRANSFERS)
+    chunks = -(-len(starts) // AUTO_BATCH)
+    check(series_crossing == {**ONE_CROSSING, "downloads": 2 * chunks},
+          f"series transfers {json.dumps(series_crossing)}: 2 uploads, each "
+          f"of the {chunks} chunks' fields and words back, no host reorder")
     launches, k1 = c["settls_step"], c["spline_gather"]
     expected = (NT - 1) * len(starts)
     check(launches == expected and k1 == 0
@@ -1337,22 +1354,38 @@ def phase_series(dev, card, check, grid, by_path):
           f"{same}, settls_step launches {cuda_settls.LAUNCHES} == "
           f"{expected}")
 
-    series_ms = event_ms(lambda: ftle_series(U, V, DT, device=dev, **kw), 1,
-                         REPS)
+    # the record as ERA5 stores it, latitude 90 -> -90: put in order on
+    # the card, the same fields bit for bit
+    era5 = {**U.coords, "latitude": grid.lats[::-1]}
+    Ue, Ve = (Field(np.ascontiguousarray(f.data[:, ::-1]), DIMS3, era5,
+                    name=f.name) for f in (U, V))
+    reset_counts()
+    era5_series = ftle_series(Ue, Ve, DT, device=dev, **kw)
+    same = np.array_equal(era5_series.data, series.data, equal_nan=True) \
+        and np.array_equal(era5_series.coords["latitude"], grid.lats)
+    check(same and TRANSFERS == series_crossing,
+          f"series on ERA5's order: identical to the ascending record's="
+          f"{same}, latitudes ascending; transfers {json.dumps(TRANSFERS)} "
+          f"(sha256 {hashlib.sha256(series.data.tobytes()).hexdigest()})")
+
+    series_ms = event_ms(lambda: ftle_series(Ue, Ve, DT, device=dev, **kw),
+                         1, REPS)
     one_ms = event_ms(lambda: ftle_pipeline(
         ud[:NT], vd[:NT], DT, grid, settls_order=SETTLS_ORDER,
         interp_order=ORDER).cpu(), 1, REPS)
 
     def prep_upload():
-        ur, vr = _prep_record(U, V, "time")[:2]
-        return _upload(ur, vr, None, dev)[0].sum().item()
+        Ur, Vr = _prep_record(Ue, Ve, "time")
+        return sum(upload(f, dev, ascending=True)[0].sum().item()
+                   for f in (Ur, Vr))
     prep_ms = event_ms(prep_upload, 1, REPS)
     med, lo, hi = spread(series_ms)
     per = [t / len(starts) for t in (med, lo, hi)]
     log(f"series: {med:.3f} ms [{lo:.3f}, {hi:.3f}] a series of "
         f"{len(starts)} windows, {per[0]:.3f} ms [{per[1]:.3f}, "
-        f"{per[2]:.3f}] a window; of a series, host prep and upload of the "
-        f"record {spread(prep_ms)[0]:.3f} ms; one-call ftle_pipeline "
+        f"{per[2]:.3f}] a window, on ERA5's order; of a series, host prep, "
+        f"upload and order on the card of the record "
+        f"{spread(prep_ms)[0]:.3f} ms; one-call ftle_pipeline "
         f"(winds on the card, field to the host) "
         f"{spread(one_ms)[0]:.3f} ms [{min(one_ms):.3f}, {max(one_ms):.3f}] "
         f"(CUDA events, median [min, max] of {REPS} after a warm-up) "
@@ -1361,12 +1394,14 @@ def phase_series(dev, card, check, grid, by_path):
 
 
 def reset_counts():
+    from lagrangiancoherence_tpu_torch.devices import reset_transfers
     from lagrangiancoherence_tpu_torch.ops import (cuda_interp,
                                                    cuda_prefilter,
                                                    cuda_settls, cuda_window)
     cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
     cuda_prefilter.LAUNCHES = 0
     cuda_window.reset_launches()
+    reset_transfers()
 
 
 def phase_blocks(dev, card, check, grid, u32, v32, by_path):
@@ -1657,7 +1692,7 @@ def phase_prefilter(dev, card, check, grid, u64, v64):
     from lagrangiancoherence_tpu_torch.bench import event_ms
     from lagrangiancoherence_tpu_torch.ops import cuda_prefilter as CP
     from lagrangiancoherence_tpu_torch.ops.interp import (
-        prefilter_dense, spline_band_factors, spline_filter_matrix)
+        prefilter_dense, spline_band_factors)
     log(f"== phase 3d: spline_prefilter vs the dense float64 path and the "
         f"plain sweep on the card [{card}]")
     ny, nx = grid.shape
@@ -1731,15 +1766,13 @@ def phase_prefilter(dev, card, check, grid, u64, v64):
     else:
         log("spline_prefilter on a second card: not run (one card)")
 
-    # times at the flagship shape, one wind component a call
-    mats = tuple(torch.tensor(spline_filter_matrix(n, ORDER),
-                              dtype=torch.float32, device=dev)
-                 for n in (ny, nx))
+    # times at the flagship shape, one wind component a call (the dense
+    # path's operators are built at the warm-up call)
     nbytes = 2 * u32.numel() * u32.element_size()
     bound_ms, bound_by, arith = bound(nbytes, 4 * 2 * u32.numel())
     kernel_ms = spread(event_ms(lambda: CP.spline_prefilter(u32, by, bx), 20,
                                 device=dev))
-    dense_ms = spread(event_ms(lambda: prefilter_dense(u32, ORDER, mats), 5,
+    dense_ms = spread(event_ms(lambda: prefilter_dense(u32, ORDER), 5,
                                device=dev))
     plain_ms = spread(event_ms(
         lambda: CP.spline_prefilter_torch(u32, by, bx), 1, trials=3,
@@ -1846,8 +1879,11 @@ def main() -> int:
     if "--facade" in sys.argv[1:]:
         grid = global_quarter_degree_grid()
         u64, v64 = bench_winds(grid, NT, np.float64)
-        phase_facade(dev, card, check, torch.cuda.synchronize, u64, v64,
-                     grid, {})
+        _, truncated = phase_facade(dev, card, check, torch.cuda.synchronize,
+                                    u64, v64, grid, {})
+        phase_labels(dev, card, check, torch.cuda.synchronize, u64, v64,
+                     grid, truncated)
+        phase_series(dev, card, check, grid, {})
         log(f"chip_smoke --facade: {len(failures)} check(s) failed")
         return 1 if failures else 0
 
@@ -2143,7 +2179,7 @@ def main() -> int:
         f"({nx}x{ny}, T={NT}, settls_order={SETTLS_ORDER}, f32) [{card}]")
     from lagrangiancoherence_tpu_torch.models.settls import (grid_state,
                                                              settls_scan)
-    state = grid_state(grid, ORDER, dtype=torch.float32, device=dev)
+    state = grid_state(grid, dtype=torch.float32, device=dev)
     dt = torch.full((), DT, dtype=torch.float32, device=dev)
     expected = NT - 1
     torch.cuda.synchronize()
@@ -2261,9 +2297,8 @@ def main() -> int:
           f"A-sub, A, ladder tiers="
           f"{[int((tier == t).sum()) for t in range(-2, 9)]}")
     # neither SETTLS loop waits for the card
-    mats = (state["prefilter_y"], state["prefilter_x"])
-    cu = prefilter(u32, order=ORDER, matrices=mats)
-    cv = prefilter(v32, order=ORDER, matrices=mats)
+    cu = prefilter(u32, order=ORDER)
+    cv = prefilter(v32, order=ORDER)
     scan_args = (u32, v32, cu, cv, state["px0"], state["py0"], dt,
                  state["conv_x"], grid)
     scan_kw = dict(settls_order=SETTLS_ORDER, interp_order=ORDER,
@@ -2580,8 +2615,8 @@ def main() -> int:
     stages = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cu = prefilter(u32, order=ORDER, matrices=mats)
-    cv = prefilter(v32, order=ORDER, matrices=mats)
+    cu = prefilter(u32, order=ORDER)
+    cv = prefilter(v32, order=ORDER)
     torch.cuda.synchronize()
     stages["prefilter_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()

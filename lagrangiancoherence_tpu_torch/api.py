@@ -7,9 +7,10 @@ the reference integrator entry point (LagrangianCoherence
 LCS/trajectory.py:8-18).  Labeled coordinates stop at this file: ``Field``
 holds host numpy arrays, the stages below receive tensors on ``device``.  A
 record crosses to the device once, in the order it is stored, and is put in
-ascending latitude and longitude there; it stays a tensor through the
-regrid, the truncation, the propagation and the deformation, and only what
-the caller receives comes back to the host (``TRANSFERS`` counts both ways).
+ascending latitude and longitude there (``devices.upload``); it stays a
+tensor through the regrid, the truncation, the propagation and the
+deformation, and only what the caller receives comes back to the host
+(``devices.download``).
 
 Differences from the reference, by design (as in the JAX package):
 
@@ -39,7 +40,7 @@ import re
 import numpy as np
 import torch
 
-from .devices import on_device, resolve_device
+from .devices import TRANSFERS, download, on_device, resolve_device, upload
 from .field import Field, as_field
 from .grid import Grid
 from .models.ftle import ftle_from_departures
@@ -65,18 +66,6 @@ def create_arrays_list(field, groupdim: str = "points"):
 
 # the span that puts a record in ascending latitude and longitude
 SORT_SPAN = "Sort to ascending coordinates"
-
-# Copies of a record's data between the host and the device, counted as
-# ``cuda_prefilter.LAUNCHES`` counts launches: "uploads" are record-sized
-# copies to the device, "downloads" arrays copied back to the host,
-# "host_reorders" copies that reorder data on the host (a record not stored
-# as (time, latitude, longitude); the debug log's first level).
-TRANSFERS = {"uploads": 0, "downloads": 0, "host_reorders": 0}
-
-
-def reset_transfers() -> None:
-    for k in TRANSFERS:
-        TRANSFERS[k] = 0
 
 COMMON_GRID_LATS = np.linspace(-89.75, 89.75, 180 * 2)
 COMMON_GRID_LONS = np.linspace(-180, 179.5, 360 * 2 + 1)
@@ -213,50 +202,6 @@ def latlonsel(field: Field, latitude=None, longitude=None,
 
 
 # ---------------------------------------------------------------------------
-# The record on the device
-# ---------------------------------------------------------------------------
-
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host record on ``device`` in ``torch.get_default_dtype()``, in the
-    order it is stored, by one copy.  On the card the cast lands in
-    page-locked staging, which the host allocator hands back for the next
-    record of the same size, and goes up from there; elsewhere it is
-    ``on_device``'s copy (none on the CPU where the dtype matches)."""
-    TRANSFERS["uploads"] += 1
-    TRANSFERS["host_reorders"] += not a.flags.c_contiguous
-    dtype = torch.get_default_dtype()
-    if device.type != "cuda":
-        return on_device(a, device, dtype)
-    staged = torch.empty(a.shape, dtype=dtype, pin_memory=True)
-    staged.copy_(torch.from_numpy(np.ascontiguousarray(a)))
-    return staged.to(device)
-
-
-def _download(t: torch.Tensor) -> np.ndarray:
-    TRANSFERS["downloads"] += 1
-    return t.cpu().numpy()
-
-
-def _ascending_on_device(f: Field, device: torch.device):
-    """``f`` (time, latitude, longitude) uploaded as stored and put in
-    ascending latitude and longitude on ``device``: the host sorts only the
-    coordinates (``np.argsort`` as ``Field.sortby`` does), the device
-    gathers along each axis that does not ascend already.  Returns the
-    tensor and the sorted latitudes and longitudes."""
-    t = _upload(f.data, device)
-    coords = []
-    for axis, dim in ((-2, "latitude"), (-1, "longitude")):
-        c = f.coords[dim]
-        order = np.argsort(c, kind="stable")
-        if not np.array_equal(order, np.arange(c.shape[0])):
-            t = torch.index_select(t, axis, torch.as_tensor(order,
-                                                            device=device))
-            c = c[order]
-        coords.append(c)
-    return (t, *coords)
-
-
-# ---------------------------------------------------------------------------
 # parcel_propagation — reference signature facade over the SETTLS loop
 # ---------------------------------------------------------------------------
 
@@ -280,8 +225,8 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
     U = as_field(U).transpose(*order)
     V = as_field(V).transpose(*order)
     with timed_stage(SORT_SPAN):
-        u, lats, lons = _ascending_on_device(U, device)
-        v = _ascending_on_device(V, device)[0]
+        u, lats, lons = upload(U, device, ascending=True)
+        v = upload(V, device, ascending=True)[0]
     px, py = _propagate(u, v, timestep, lats, lons, cyclic_xboundary,
                         SETTLS_order=SETTLS_order, interp_order=interp_order,
                         return_traj=return_traj, kernel=kernel,
@@ -299,23 +244,16 @@ def _propagate(u: torch.Tensor, v: torch.Tensor, timestep, lats, lons,
     tensors there."""
     grid = Grid(lats=lats, lons=lons, cyclic_x=cyclic_xboundary)
     with timed_stage("Parcel propagation"):
-        px, py, overflow = parcel_propagation_core(
+        return parcel_propagation_core(
             u, v, float(timestep), grid,
             settls_order=int(SETTLS_order),
             interp_order=int(interp_order),
             return_traj=return_traj,
             kernel=kernel,
-            return_overflow=True,
             # per-step progress lines, as the reference's verboseprint
             # (LagrangianCoherence LCS/trajectory.py:81)
             progress=bool(verbose),
             device=device)
-        if int(overflow):
-            logger.warning(
-                "windowed gathers clamped some taps (extreme shear); "
-                "affected tiles are approximate — re-run with the default "
-                "engine for exact values")
-    return px, py
 
 
 def _positions(px: torch.Tensor, py: torch.Tensor, lats, lons, times,
@@ -336,14 +274,14 @@ def _positions(px: torch.Tensor, py: torch.Tensor, lats, lons, times,
             "cftime.Datetime360Day.")
         tcoord = as_labels(times)
         dims = (propdim, "latitude", "longitude")
-        fx = Field(_download(px), dims, {**coords2d, propdim: tcoord},
+        fx = Field(download(px), dims, {**coords2d, propdim: tcoord},
                    name="positions_x")
-        fy = Field(_download(py), dims, {**coords2d, propdim: tcoord},
+        fy = Field(download(py), dims, {**coords2d, propdim: tcoord},
                    name="positions_y")
         return fx, fy
-    fx = Field(_download(px), ("latitude", "longitude"), dict(coords2d),
+    fx = Field(download(px), ("latitude", "longitude"), dict(coords2d),
                name="positions_x")
-    fy = Field(_download(py), ("latitude", "longitude"), dict(coords2d),
+    fy = Field(download(py), ("latitude", "longitude"), dict(coords2d),
                name="positions_y")
     fx = fx.assign_coords(**{propdim: times[-1]})
     fy = fy.assign_coords(**{propdim: times[-1]})
@@ -362,9 +300,10 @@ def flowmap_gradient(x_departure, y_departure, sigma=None,
     lats = x_departure.coords["latitude"]
     lons = x_departure.coords["longitude"]
     grid = Grid(lats=lats, lons=lons)
-    tensor = _core(on_device(x_departure.data, device, torch.float64),
-                   on_device(y_departure.data, device, torch.float64),
-                   grid, sigma=sigma).cpu().numpy()
+    tensor = download(_core(
+        on_device(x_departure.data, device, torch.float64),
+        on_device(y_departure.data, device, torch.float64), grid,
+        sigma=sigma))
     return Field(tensor, ("derivatives", "latitude", "longitude"),
                  {"latitude": lats, "longitude": lons,
                   "derivatives": np.arange(9)},
@@ -428,8 +367,8 @@ class LCS:
                 # it is stored; elsewhere the record goes up as stored and
                 # is put in order on the device.
                 if not regrid:
-                    ut, lats, lons = _ascending_on_device(u, dev)
-                    vt = _ascending_on_device(v, dev)[0]
+                    ut, lats, lons = upload(u, dev, ascending=True)
+                    vt = upload(v, dev, ascending=True)[0]
 
             if isglobal:
                 if regrid:
@@ -454,7 +393,7 @@ class LCS:
                 # regridded or truncated on the device, else the input's
                 # values in ascending order.
                 if regrid or (isglobal and truncation is not None):
-                    first = _download(ut[0])
+                    first = download(ut[0])
                 else:
                     level = u.isel({timedim: 0})
                     sorted_level = level.sortby("latitude").sortby(
@@ -483,7 +422,7 @@ class LCS:
 
             with timed_stage("Deformation tensor + eigenvalues"):
                 grid = Grid(lats=lats, lons=lons)
-                norm = _download(ftle_from_departures(
+                norm = download(ftle_from_departures(
                     px.to(torch.float64), py.to(torch.float64), grid,
                     sigma=self.gauss_sigma, compat=self.compat))
 
@@ -516,6 +455,6 @@ class LCS:
         """``f`` uploaded as stored and regridded on ``device``: the
         regrid's index tables read the source in either order."""
         return regrid_linear_nearest(
-            _upload(f.data, device), f.coords["latitude"],
+            upload(f, device), f.coords["latitude"],
             f.coords["longitude"], COMMON_GRID_LATS, COMMON_GRID_LONS,
             device=device)

@@ -141,10 +141,9 @@ def numerics_record(u, v, grid, device=None) -> dict:
     px, py = parcel_propagation_core(u, v, DT, grid,
                                      settls_order=SETTLS_ORDER,
                                      interp_order=ORDER, device=dev)
-    state = grid_state(grid, ORDER, dtype=u.dtype, device=dev)
+    state = grid_state(grid, dtype=u.dtype, device=dev)
     raw = torch.stack([u[0], v[0], u[1], v[1]])
-    cw = prefilter(raw, order=ORDER,
-                   matrices=(state["prefilter_y"], state["prefilter_x"]))
+    cw = prefilter(raw, order=ORDER)
     want = interp_at_parcels_multi(raw, cw, px, py, order=ORDER, **bounds)
     k1, _ = cuda_interp.cuda_interp_multi(raw, cw, px, py, order=ORDER,
                                           **bounds)

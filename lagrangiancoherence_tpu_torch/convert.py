@@ -1,12 +1,13 @@
 """Carry state from the JAX package (or any numpy source) into the port.
 
 This system has no learned weights: its state is the grid and the
-grid-derived tensors (the prefilter matrices, ``conv_x``, the initial mesh),
-plus the winds a run is given.  Everything crosses as numpy arrays, so this
-module needs neither package's internals: ``grid_from_jax`` is duck-typed
-on ``lats``, ``lons`` and ``cyclic_x``, ``field_from_jax`` on ``data``,
-``dims``, ``coords``, ``name`` and ``attrs``, and
-``FTLEPipeline.load_numpy_state`` takes the matrices by buffer name.
+grid-derived tensors (``conv_x`` and the initial mesh), plus the winds a run
+is given; the prefilter builds its own operators from the grid's sizes.
+Everything crosses as numpy arrays, so this module needs neither package's
+internals: ``grid_from_jax`` is duck-typed on ``lats``, ``lons`` and
+``cyclic_x``, ``field_from_jax`` on ``data``, ``dims``, ``coords``,
+``name`` and ``attrs``, and ``FTLEPipeline.load_numpy_state`` takes the
+grid-derived tensors by buffer name.
 """
 from __future__ import annotations
 

@@ -21,10 +21,9 @@ any point wanted more steps than ``max_steps``.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..devices import on_device, resolve_device
+from ..devices import download, resolve_device, upload
 from ..grid import Grid
 
 __all__ = ["find_area_core", "find_area"]
@@ -107,29 +106,26 @@ def find_area(ftle, eigvectors, ridges, qsat=None, qdpt=None,
     from ..field import Field, as_field
     from ..utils.logging import logger
     device = resolve_device(device, ftle, eigvectors, ridges)
-    ftle = as_field(ftle).sortby("latitude").sortby("longitude")
-    ridges = as_field(ridges).sortby("latitude").sortby("longitude")
+    ftle, lats, lons = upload(as_field(ftle), device, ascending=True)
+    ridges = upload(as_field(ridges), device, ascending=True)[0]
     if hasattr(eigvectors, "dims"):
-        eigvectors = as_field(eigvectors).sortby("latitude").sortby("longitude")
-        ev = np.moveaxis(np.asarray(eigvectors.data), 0, -1) \
-            if eigvectors.dims[0] == "eigvectors" else np.asarray(eigvectors.data)
+        eigvectors = as_field(eigvectors)
+        ev = upload(eigvectors, device, ascending=True)[0]
+        if eigvectors.dims[0] == "eigvectors":
+            ev = torch.movedim(ev, 0, -1)
     else:
-        ev = np.asarray(eigvectors)
+        ev = upload(eigvectors, device)
 
     if qsat is None or qdpt is None:
         saturation_ratio = 0.5
     else:
         saturation_ratio = qdpt / qsat
 
-    lats = ftle.coords["latitude"]
-    lons = ftle.coords["longitude"]
     grid = Grid(lats=lats, lons=lons)
-    bounds, overflow = find_area_core(
-        on_device(ftle.data, device), on_device(ev, device),
-        on_device(ridges.data, device), grid, saturation_ratio,
-        max_steps=max_steps)
+    bounds, overflow = find_area_core(ftle, ev, ridges, grid,
+                                      saturation_ratio, max_steps=max_steps)
     if bool(overflow):
         logger.warning("find_area: max_steps=%d truncated at least one walk; "
                        "increase max_steps for full coverage", max_steps)
-    return Field(bounds.cpu().numpy(), ("latitude", "longitude"),
+    return Field(download(bounds), ("latitude", "longitude"),
                  {"latitude": lats, "longitude": lons}, name="bounds")

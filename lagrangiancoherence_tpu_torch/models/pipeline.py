@@ -2,10 +2,10 @@
 
 Counterpart of ``lagrangiancoherence_tpu/models/pipeline.py``: prefilter,
 SETTLS integration, flow-map gradient and the closed-form norm, run eagerly
-on one device.  ``FTLEPipeline`` holds the grid-derived state — the two
-prefilter matrices, ``conv_x`` and the initial mesh — as buffers, so a
-caller that computes many fields on one grid builds it once;
-``ftle_pipeline`` is the one-call form.
+on one device.  ``FTLEPipeline`` holds the grid-derived state — ``conv_x``
+and the initial mesh — as buffers, so a caller that computes many fields on
+one grid builds it once; ``ftle_pipeline`` is the one-call form.  The
+prefilter's operators are the prefilter's own (``ops/interp.prefilter``).
 """
 from __future__ import annotations
 
@@ -60,19 +60,14 @@ class FTLEPipeline(nn.Module):
         self.engine = engine
         self.rebin = rebin
         with timed_stage("Grid state", logging.DEBUG):
-            state = grid_state(grid, interp_order, dtype=dtype, device=device)
+            state = grid_state(grid, dtype=dtype, device=device)
         for name, t in state.items():
             self.register_buffer(name, t)
 
     def load_numpy_state(self, arrays: Mapping[str, np.ndarray]) -> None:
-        """Copy host arrays (e.g. the JAX package's prefilter matrices) into
-        the buffers of the same names, keeping each buffer's dtype and
-        device.
-
-        On the card at order 3 in float32 or float64 the prefilter solves
-        the band with ``ops/interp.spline_band_factors``, not with the dense
-        matrices, so loading ``prefilter_y``/``prefilter_x`` changes only
-        the dense path (the CPU, orders 2/4/5, other dtypes)."""
+        """Copy host arrays (e.g. the JAX package's ``conv_x`` or initial
+        mesh) into the buffers of the same names, ``conv_x``, ``px0`` and
+        ``py0``, keeping each buffer's dtype and device."""
         buffers = dict(self.named_buffers())
         for name, a in arrays.items():
             if name not in buffers:

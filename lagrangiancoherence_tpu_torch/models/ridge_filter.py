@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field import Field, as_field
+from ..field import as_field
 from ..utils.logging import timed_stage
 
 __all__ = ["filter_ridges", "label_components", "component_properties"]

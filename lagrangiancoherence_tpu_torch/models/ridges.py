@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..devices import on_device, resolve_device
+from ..devices import download, resolve_device, upload
 from ..grid import Grid
 from ..ops.filters import gaussian_filter
 from ..ops.stencil import derivative_spherical_coords
@@ -145,20 +145,16 @@ def find_ridges_spherical_hessian(da, sigma=0.5, scheme: str = "first_order",
     from ..field import Field, as_field
     with timed_stage("Hessian ridges"):
         device = resolve_device(device, da)
-        da = as_field(da).sortby("latitude").sortby("longitude")
-        da = da.transpose("latitude", "longitude")
-        lats = da.coords["latitude"]
-        lons = da.coords["longitude"]
+        dims = ("latitude", "longitude")
+        field, lats, lons = upload(as_field(da).transpose(*dims), device,
+                                   ascending=True)
         grid = Grid(lats=lats, lons=lons, cyclic_x=isglobal)
-        out = find_ridges_core(on_device(da.data, device,
-                                         torch.get_default_dtype()),
-                               grid, sigma, float(tolerance_threshold),
+        out = find_ridges_core(field, grid, sigma, float(tolerance_threshold),
                                isglobal, compat)
         coords = {"latitude": lats, "longitude": lons}
-        dims = ("latitude", "longitude")
 
         def host(name):
-            return out[name].cpu().numpy()
+            return download(out[name])
 
         def f2(name):
             return Field(host(name), dims, dict(coords), name=name)

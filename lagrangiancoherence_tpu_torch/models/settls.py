@@ -58,7 +58,7 @@ from ..ops import pole as P
 from ..ops.cuda_settls import (CONV_Y, clamp_wrap, euler_guess, interleave,
                                settls_correction, settls_step,
                                settls_step_torch)
-from ..ops.interp import _to_index, prefilter, spline_filter_matrix
+from ..ops.interp import _to_index, prefilter
 from ..ops.tiles import SORT_LADDER, TILE_C, TILE_R
 from ..ops.window_interp import windowed_interp_multi
 from ..utils.logging import logger, timed_stage
@@ -109,20 +109,17 @@ def resolve_engine(engine: str) -> str:
     return "dma-all" if engine == "auto" else engine
 
 
-def grid_state(grid, order: int, *, dtype: torch.dtype,
+def grid_state(grid, *, dtype: torch.dtype,
                device) -> dict[str, torch.Tensor]:
-    """The grid-derived tensors the integrator needs: the two prefilter
-    matrices (``prefilter_y`` (ny, ny), ``prefilter_x`` (nx, nx)), the
-    per-home-row ``conv_x`` (ny, 1) m/s → deg/s factor and the initial mesh
-    ``px0``/``py0`` (ny, nx)."""
+    """The grid-derived tensors the integrator needs: the per-home-row
+    ``conv_x`` (ny, 1) m/s → deg/s factor and the initial mesh
+    ``px0``/``py0`` (ny, nx).  The prefilter builds its own operators
+    (``ops/interp.prefilter``)."""
     kw = dict(dtype=dtype, device=device)
-    ny, nx = grid.shape
     conv_y = torch.full((), CONV_Y, **kw)
     lat = torch.tensor(grid.lats, **kw)
     px0, py0 = grid.mesh_xy
     return {
-        "prefilter_y": torch.tensor(spline_filter_matrix(ny, order), **kw),
-        "prefilter_x": torch.tensor(spline_filter_matrix(nx, order), **kw),
         "conv_x": (conv_y / torch.abs(torch.cos(lat * (np.pi / 180.0))))[:, None],
         "px0": torch.tensor(px0, **kw),
         "py0": torch.tensor(py0, **kw),
@@ -571,14 +568,13 @@ def parcel_propagation_core(u, v, timestep, grid, *, settls_order: int = 0,
                          f"match grid {grid.shape}")
     kernel = resolve_kernel(kernel, u.device, interp_order)
     if state is None:
-        state = grid_state(grid, interp_order, dtype=u.dtype, device=u.device)
+        state = grid_state(grid, dtype=u.dtype, device=u.device)
 
     # prefilter every time slice once; raw fields are still needed for the
     # pole rows' order-1/constant path
-    mats = (state["prefilter_y"], state["prefilter_x"])
     with timed_stage("Prefilter", logging.DEBUG):
-        cu = prefilter(u, order=interp_order, matrices=mats)
-        cv = prefilter(v, order=interp_order, matrices=mats)
+        cu = prefilter(u, order=interp_order)
+        cv = prefilter(v, order=interp_order)
     dt = torch.full((), float(timestep), dtype=u.dtype, device=u.device)
     with timed_stage("SETTLS loop", logging.DEBUG):
         *pos, overflow = settls_scan(

@@ -168,56 +168,47 @@ def _band_solve_applies(device_type: str, order: int,
             and dtype in (torch.float32, torch.float64))
 
 
-@lru_cache(maxsize=16)
-def _band_tensor(n: int, dtype: torch.dtype,
-                 device: torch.device) -> torch.Tensor:
-    """``spline_band_factors(n)`` in ``dtype`` on ``device``, uploaded
-    once."""
-    return torch.tensor(spline_band_factors(n), dtype=dtype, device=device)
+@lru_cache(maxsize=32)
+def _operator(build, n: int, order: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """``build(n, order)`` (``spline_band_factors`` or
+    ``spline_filter_matrix``) in ``dtype`` on ``device``, built and
+    uploaded on first use."""
+    return torch.tensor(build(n, order), dtype=dtype, device=device)
 
 
-def prefilter(field: torch.Tensor, order: int = 3,
-              matrices: tuple[torch.Tensor, torch.Tensor] | None = None
-              ) -> torch.Tensor:
+def prefilter(field: torch.Tensor, order: int = 3) -> torch.Tensor:
     """Separable 2-D spline prefilter over the trailing (lat, lon) axes;
     leading axes (time, component) are batched.
 
     On a CUDA tensor at order 3 in float32 or float64 the hand-written
     banded solve of ``ops/cuda_prefilter.py`` runs (a latitude and a
     longitude sweep), with the ``spline_band_factors`` of the field's
-    shape, uploaded once a device and dtype; ``matrices`` is not read
-    there.  Everywhere else (the CPU, orders 2/4/5, other dtypes)
+    shape.  Everywhere else (the CPU, orders 2/4/5, other dtypes)
     ``prefilter_dense`` runs.  Both solve the same mirrored band, in the
-    field's precision.
+    field's precision, with operators built once a size, dtype and device.
     """
     if order in (0, 1):
         return field
     if _band_solve_applies(field.device.type, order, field.dtype):
         ny, nx = field.shape[-2], field.shape[-1]
+        kw = dict(order=order, dtype=field.dtype, device=field.device)
         return cuda_prefilter.spline_prefilter(
-            field.contiguous(), _band_tensor(ny, field.dtype, field.device),
-            _band_tensor(nx, field.dtype, field.device))
-    return prefilter_dense(field, order, matrices)
+            field.contiguous(), _operator(spline_band_factors, ny, **kw),
+            _operator(spline_band_factors, nx, **kw))
+    return prefilter_dense(field, order)
 
 
-def prefilter_dense(field: torch.Tensor, order: int = 3,
-                    matrices: tuple[torch.Tensor, torch.Tensor] | None = None
-                    ) -> torch.Tensor:
-    """The prefilter as two dense matmuls by the inverse, on any device.
-
-    ``matrices`` = (``M_y``, ``M_x``) on the field's device and dtype, as
-    ``FTLEPipeline`` holds them; by default they are built from
-    ``spline_filter_matrix``.
-    """
+def prefilter_dense(field: torch.Tensor, order: int = 3) -> torch.Tensor:
+    """The prefilter as two dense matmuls by the inverses
+    ``spline_filter_matrix`` gives, on any device."""
     if order in (0, 1):
         return field
     _check_matmul_precision()
-    if matrices is None:
-        ny, nx = field.shape[-2], field.shape[-1]
-        kw = dict(dtype=field.dtype, device=field.device)
-        matrices = (torch.tensor(spline_filter_matrix(ny, order), **kw),
-                    torch.tensor(spline_filter_matrix(nx, order), **kw))
-    my, mx = matrices
+    ny, nx = field.shape[-2], field.shape[-1]
+    kw = dict(order=order, dtype=field.dtype, device=field.device)
+    my = _operator(spline_filter_matrix, ny, **kw)
+    mx = _operator(spline_filter_matrix, nx, **kw)
     return torch.matmul(torch.matmul(my, field), mx.transpose(0, 1))
 
 

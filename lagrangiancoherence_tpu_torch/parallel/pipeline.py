@@ -118,12 +118,11 @@ def _integrate(u, v, timestep, grid, mesh, *, settls_order, interp_order,
         if ud.shape[-2:] != (ny, nx) or vd.shape != ud.shape:
             raise ValueError(f"winds {tuple(ud.shape)}/{tuple(vd.shape)} do "
                              f"not match grid {grid.shape}")
-        state = grid_state(grid, interp_order, dtype=ud.dtype, device=dev)
-        mats = (state["prefilter_y"], state["prefilter_x"])
+        state = grid_state(grid, dtype=ud.dtype, device=dev)
         home = torch.tensor(lay["home_idx"], dtype=torch.int64, device=dev)
         per_device[dev] = dict(
-            u=ud, v=vd, cu=prefilter(ud, order=interp_order, matrices=mats),
-            cv=prefilter(vd, order=interp_order, matrices=mats),
+            u=ud, v=vd, cu=prefilter(ud, order=interp_order),
+            cv=prefilter(vd, order=interp_order),
             dt=torch.full((), float(timestep), dtype=ud.dtype, device=dev),
             kernel=resolve_kernel(kernel, dev, interp_order), home=home,
             px0=state["px0"][home], py0=state["py0"][home],

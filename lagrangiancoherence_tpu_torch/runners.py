@@ -6,10 +6,11 @@ production pattern is one batch job per timestamp over netCDF files
 Python loop sliding an 8-step window).  Here it is a library call:
 
 * ``ftle_series`` slides an integration window over a long wind record and
-  computes one FTLE field per window.  The record is uploaded once and the
-  windows are slices of it on the device; one ``FTLEPipeline`` serves every
-  window, so the grid state (prefilter matrices, ``conv_x``, the initial
-  mesh) is built once per series.  With a ``"t"`` mesh
+  computes one FTLE field per window.  The record crosses to the device
+  once, in the order it is stored, and is put in ascending coordinates
+  there (``devices.upload``); the windows are slices of it on the device.
+  One ``FTLEPipeline`` serves every window, so the grid state (``conv_x``,
+  the initial mesh) is built once per series.  With a ``"t"`` mesh
   (``parallel/mesh.batch_mesh``) each chunk of windows goes through
   ``parallel/pipeline.ftle_batch``.
 * ``ftle_series_to_files`` **streams**: each chunk of windows is computed
@@ -35,7 +36,7 @@ import os
 import numpy as np
 import torch
 
-from .devices import on_device, resolve_device
+from .devices import download, resolve_device, upload
 from .field import Field, as_field
 from .grid import Grid
 from .utils.logging import logger, timed_stage
@@ -51,17 +52,13 @@ def _windows(nt: int, window: int, stride: int) -> list[int]:
 
 
 def _prep_record(u, v, propdim):
-    """Sort/transpose the wind record into (time, lat, lon) numpy arrays."""
+    """The wind record as (time, latitude, longitude) Fields, in the order
+    it is stored."""
     if not (hasattr(u, "dims") or not isinstance(u, np.ndarray)):
         raise TypeError("pass Fields (or xarray DataArrays) with "
                         "time/latitude/longitude dims")
-    U, V = as_field(u), as_field(v)
     order = (propdim, "latitude", "longitude")
-    U = U.transpose(*order).sortby("latitude").sortby("longitude")
-    V = V.transpose(*order).sortby("latitude").sortby("longitude")
-    lats, lons = U.coords["latitude"], U.coords["longitude"]
-    times = U.coords[propdim]
-    return np.asarray(U.data), np.asarray(V.data), lats, lons, times
+    return as_field(u).transpose(*order), as_field(v).transpose(*order)
 
 
 def _auto_batch(mesh) -> int:
@@ -115,7 +112,7 @@ def _iter_series_chunks(ud, vd, starts, window, timestep, grid, *, batch,
                 flags.append(f)
             out, overflow = torch.stack(outs), torch.stack(flags)
         with timed_stage("Series chunk copy back", logging.DEBUG):
-            overflow, out = overflow.cpu().numpy(), out.cpu().numpy()
+            overflow, out = download(overflow), download(out)
         _warn_overflow(overflow, chunk)
         yield chunk, out
 
@@ -126,25 +123,25 @@ def _stamp_indices(starts, window, timestep):
     return [(s + window - 1 if timestep > 0 else s) for s in starts]
 
 
-def _setup(u, v, window, stride, propdim, cyclic_x):
+def _setup(u, v, window, stride, propdim):
     with timed_stage("Series record prep"):
-        ud, vd, lats, lons, times = _prep_record(u, v, propdim)
-        grid = Grid(lats=lats, lons=lons, cyclic_x=cyclic_x)
-    starts = _windows(ud.shape[0], window, stride)
+        U, V = _prep_record(u, v, propdim)
+    starts = _windows(U.shape[0], window, stride)
     if not starts:
-        raise ValueError(f"record of {ud.shape[0]} steps is shorter than "
+        raise ValueError(f"record of {U.shape[0]} steps is shorter than "
                          f"window={window}")
-    return ud, vd, lats, lons, times, grid, starts
+    return U, V, U.coords[propdim], starts
 
 
-def _upload(ud, vd, mesh, device):
-    """The record on the series' device — the mesh's first device with a
-    mesh — in ``torch.get_default_dtype()``, once."""
+def _record_on_device(U, V, mesh, device):
+    """The record on the series' device (the mesh's first device with a
+    mesh) in ascending coordinates, and those coordinates."""
     device = mesh.devices.flat[0] if mesh is not None \
         else resolve_device(device)
-    dtype = torch.get_default_dtype()
     with timed_stage("Series record upload"):
-        return on_device(ud, device, dtype), on_device(vd, device, dtype)
+        ud, lats, lons = upload(U, device, ascending=True)
+        vd = upload(V, device, ascending=True)[0]
+    return ud, vd, lats, lons
 
 
 def ftle_series(u, v, timestep: float, *, window: int, stride: int = 1,
@@ -173,10 +170,10 @@ def ftle_series(u, v, timestep: float, *, window: int, stride: int = 1,
     LCS/area_of_influence.py:168-184), which clamp at the domain edge.
     """
     with timed_stage(SERIES_SPAN):
-        ud, vd, lats, lons, times, grid, starts = _setup(
-            u, v, window, stride, propdim, cyclic_x)
+        U, V, times, starts = _setup(u, v, window, stride, propdim)
         batch = _auto_batch(mesh) if batch == "auto" else max(1, int(batch))
-        ud, vd = _upload(ud, vd, mesh, device)
+        ud, vd, lats, lons = _record_on_device(U, V, mesh, device)
+        grid = Grid(lats=lats, lons=lons, cyclic_x=cyclic_x)
         kw = dict(settls_order=settls_order, interp_order=interp_order,
                   sigma=sigma, compat=compat, kernel=kernel, engine=engine)
         fields = []
@@ -221,8 +218,7 @@ def ftle_series_to_files(u, v, timestep: float, outdir: str, *,
 
     with timed_stage(SERIES_SPAN):
         os.makedirs(outdir, exist_ok=True)
-        ud, vd, lats, lons, times, grid, starts = _setup(u, v, window, stride,
-                                                         propdim, cyclic_x)
+        U, V, times, starts = _setup(u, v, window, stride, propdim)
         stamps = np.asarray(times)[_stamp_indices(starts, window, timestep)]
         paths = {s: os.path.join(outdir, f"ftle_{_stamp_tag(st)}.nc")
                  for s, st in zip(starts, stamps)}
@@ -238,7 +234,8 @@ def ftle_series_to_files(u, v, timestep: float, outdir: str, *,
             return []
 
         batch = _auto_batch(mesh) if batch == "auto" else max(1, int(batch))
-        ud, vd = _upload(ud, vd, mesh, device)
+        ud, vd, lats, lons = _record_on_device(U, V, mesh, device)
+        grid = Grid(lats=lats, lons=lons, cyclic_x=cyclic_x)
         kw = dict(settls_order=settls_order, interp_order=interp_order,
                   sigma=sigma, compat=compat, kernel=kernel, engine=engine)
         written = []

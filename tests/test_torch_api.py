@@ -33,6 +33,7 @@ from lagrangiancoherence_tpu.grid import Grid as JaxGrid
 from lagrangiancoherence_tpu.models import ftle as JF
 from lagrangiancoherence_tpu.testing import flows
 from lagrangiancoherence_tpu_torch import api as TA
+from lagrangiancoherence_tpu_torch import devices as TD
 from lagrangiancoherence_tpu_torch.convert import field_from_jax
 from lagrangiancoherence_tpu_torch.devices import on_device, resolve_device
 from lagrangiancoherence_tpu_torch.field import Field, as_field
@@ -744,12 +745,12 @@ def test_inputs_are_not_mutated(call, ascending):
     ("transposed", False, (2, 1, 2)),
     ("propagation", False, (2, 2, 0))])
 def test_transfer_counter(call, dpts, want):
-    """``api.TRANSFERS``: an ERA5-ordered record crosses up once a wind
+    """``devices.TRANSFERS``: an ERA5-ordered record crosses up once a wind
     component and nothing comes back but what the caller receives; no
     host copy is reordered unless the record is stored in another order
     than (time, latitude, longitude)."""
     U, V = era5_record()
-    TA.reset_transfers()
+    TD.reset_transfers()
     if call == "propagation":
         TA.parcel_propagation(U, V, timestep=-6 * 3600, verbose=False,
                               device="cpu")
@@ -761,8 +762,8 @@ def test_transfer_counter(call, dpts, want):
     else:
         TA.LCS(timestep=-6 * 3600, return_dpts=dpts, device="cpu")(
             u=U, v=V, verbose=False, **call)
-    assert (TA.TRANSFERS["uploads"], TA.TRANSFERS["downloads"],
-            TA.TRANSFERS["host_reorders"]) == want, TA.TRANSFERS
+    assert (TD.TRANSFERS["uploads"], TD.TRANSFERS["downloads"],
+            TD.TRANSFERS["host_reorders"]) == want, TD.TRANSFERS
 
 
 @pytest.mark.parametrize("call", [dict(isglobal=False),
@@ -783,7 +784,7 @@ def test_legacy_smoothing_factor_is_logged_as_from_the_sorted_record(call):
     logger.addHandler(h)
     logger.setLevel(logging.DEBUG)
     try:
-        TA.reset_transfers()
+        TD.reset_transfers()
         TA.LCS(timestep=-6 * 3600, device="cpu")(u=U, v=V, verbose=False,
                                                  **call)
     finally:
@@ -800,4 +801,4 @@ def test_legacy_smoothing_factor_is_logged_as_from_the_sorted_record(call):
             TA.COMMON_GRID_LATS, 20, device="cpu").numpy()[0]
     want = int(10 * first.size * float(np.nanstd(first)))
     assert line == f"legacy smoothing factor s = {want} (unused)"
-    assert TA.TRANSFERS["host_reorders"] == (0 if call["isglobal"] else 1)
+    assert TD.TRANSFERS["host_reorders"] == (0 if call["isglobal"] else 1)

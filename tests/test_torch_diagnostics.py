@@ -28,6 +28,7 @@ from lagrangiancoherence_tpu.ops import idw as JI
 from lagrangiancoherence_tpu.ops import morphology as JM
 from lagrangiancoherence_tpu_torch import (filter_ridges, find_area,
                                           find_ridges_spherical_hessian)
+from lagrangiancoherence_tpu_torch import devices as TD
 from lagrangiancoherence_tpu_torch.convert import field_from_jax
 from lagrangiancoherence_tpu_torch.field import Field
 from lagrangiancoherence_tpu_torch.grid import Grid
@@ -182,6 +183,47 @@ def test_facade_two_outputs_scheme_ignored_and_crest():
     crest = np.argmin(np.abs(lats - 5.0))
     assert ridges.data[crest - 2:crest + 3].sum() > 0
     assert (eigmin.data[crest] < 0).all()
+
+
+def descending(f: Field) -> Field:
+    """``f`` in ERA5's order: latitudes descending, longitudes reversed."""
+    data = np.ascontiguousarray(np.flip(f.data, axis=(f.axis("latitude"),
+                                                     f.axis("longitude"))))
+    coords = {**f.coords, "latitude": f.coords["latitude"][::-1],
+              "longitude": f.coords["longitude"][::-1]}
+    return Field(data, f.dims, coords, name=f.name)
+
+
+def assert_same_fields(got, want):
+    for g, w in zip(got, want, strict=True):
+        assert g.dims == w.dims and g.name == w.name
+        assert g.data.dtype == w.data.dtype
+        assert np.array_equal(g.data, w.data, equal_nan=True)
+        assert set(g.coords) == set(w.coords)
+        for k in w.coords:
+            assert np.array_equal(g.coords[k], w.coords[k]), k
+
+
+@pytest.mark.parametrize("stored", ["latitude_first", "longitude_first"])
+def test_facade_descending_field_equals_ascending_run(stored):
+    """A Field in ERA5's order (stored either way round) goes up as stored
+    and is put in ascending order on the device: its six outputs equal
+    the ascending Field's exactly, coordinates included, by one upload and
+    one download an output."""
+    f, lats, lons = wavy_field(2)
+    fld = Field(f, DIMS, {"latitude": lats, "longitude": lons}, name="ftle")
+    kw = dict(sigma=1.2, tolerance_threshold=1e-3, return_eigvectors=True,
+              isglobal=False, device="cpu")
+    want = find_ridges_spherical_hessian(fld, **kw)
+    era5 = descending(fld)
+    if stored == "longitude_first":
+        era5 = Field(np.ascontiguousarray(era5.data.T), DIMS[::-1],
+                     era5.coords, name=era5.name)
+    TD.reset_transfers()
+    got = find_ridges_spherical_hessian(era5, **kw)
+    assert_same_fields(got, want)
+    assert TD.TRANSFERS == {"uploads": 1, "downloads": 6,
+                            "host_reorders": int(stored != "latitude_first")}
 
 
 def test_facade_dtype_follows_default_dtype():
@@ -401,6 +443,24 @@ def test_find_area_facade_matches_jax(caplog):
                         device="cpu")
     assert out.data.sum() > 0
     assert any("max_steps=4" in r.message for r in caplog.records)
+
+
+def test_find_area_descending_fields_equal_ascending_run():
+    """Fields in ERA5's order are put in ascending order on the device,
+    each by its own coordinates: the mask equals the ascending run's."""
+    ftle, ev, ridges, lats, lons = area_random(2)
+    coords = {"latitude": lats, "longitude": lons}
+    evc = {**coords, "eigvectors": np.arange(2)}
+    args = (Field(ftle, DIMS, coords),
+            Field(np.moveaxis(ev, -1, 0), ("eigvectors",) + DIMS, evc),
+            Field(ridges, DIMS, coords))
+    want = find_area(*args, max_steps=32, device="cpu")
+    TD.reset_transfers()
+    got = find_area(*(descending(a) for a in args), max_steps=32,
+                    device="cpu")
+    assert_same_fields((got,), (want,))
+    assert want.data.sum() > 0
+    assert TD.TRANSFERS == {"uploads": 3, "downloads": 1, "host_reorders": 0}
 
 
 # ---------------------------------------------------------------------------

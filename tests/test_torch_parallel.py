@@ -203,7 +203,7 @@ def test_block_layout_matches_jax(n_blocks):
     np.testing.assert_array_equal(lay["conv_x"], conv_x)
     # the blocks' start positions and conv_x: the grid state's rows, which
     # are JAX's mesh rows and its float64 conv_x to the last bit or so
-    state = grid_state(grid, 3, dtype=torch.float64, device="cpu")
+    state = grid_state(grid, dtype=torch.float64, device="cpu")
     px0, py0 = jgrid.mesh_xy
     idx = torch.tensor(home_idx)
     np.testing.assert_array_equal(state["px0"][idx].numpy(), px0[home_idx])
@@ -468,10 +468,9 @@ def test_blockspec_block_scan_trajectories():
     returns the whole grid's trajectory rows, and ``debug_per_step`` its
     per-step words; an x-block is refused."""
     u, v, grid = vortex_case()
-    state = grid_state(grid, 3, dtype=torch.float64, device="cpu")
-    mats = (state["prefilter_y"], state["prefilter_x"])
+    state = grid_state(grid, dtype=torch.float64, device="cpu")
     ut, vt = torch.tensor(u), torch.tensor(v)
-    cu, cv = (prefilter(a, order=3, matrices=mats) for a in (ut, vt))
+    cu, cv = (prefilter(a, order=3) for a in (ut, vt))
     dt = torch.tensor(DT)
     scan = dict(settls_order=1, interp_order=3, kernel="torch",
                 engine="blockspec")

@@ -26,13 +26,13 @@ import numpy as np
 import pytest
 import torch
 
+from lagrangiancoherence_tpu.grid import EARTH_RADIUS
 from lagrangiancoherence_tpu.grid import Grid as JaxGrid
 from lagrangiancoherence_tpu.models import ftle as JF
 from lagrangiancoherence_tpu.models.pipeline import \
     ftle_pipeline as jax_ftle_pipeline
 from lagrangiancoherence_tpu.models.settls import \
     parcel_propagation_core as jax_propagation
-from lagrangiancoherence_tpu.ops.interp import spline_filter_matrix
 from lagrangiancoherence_tpu.testing import flows
 from lagrangiancoherence_tpu.testing import oracle as O
 from lagrangiancoherence_tpu_torch import FTLEPipeline, ftle_pipeline
@@ -227,8 +227,10 @@ def test_flowmap_gradient_matches_jax(sigma):
 
 
 def test_convert_round_trip():
-    """Grid, winds and the JAX package's prefilter matrices cross as numpy
-    arrays; a module loaded with them computes the same field."""
+    """Grid, winds and the JAX package's grid-derived tensors (``conv_x``
+    and the initial mesh, as its ``parcel_propagation_core`` forms them)
+    cross as numpy arrays; a module loaded with them computes the same
+    field."""
     u, v, lats, lons = _vortex()
     jgrid = JaxGrid(lats=lats, lons=lons, cyclic_x=True)
     grid = grid_from_jax(jgrid)
@@ -242,11 +244,14 @@ def test_convert_round_trip():
 
     model = FTLEPipeline(grid, settls_order=SETTLS_ORDER, dtype=torch.float64,
                          device="cpu")
-    ny, nx = grid.shape
-    model.load_numpy_state({"prefilter_y": spline_filter_matrix(ny, 3),
-                            "prefilter_x": spline_filter_matrix(nx, 3)})
-    np.testing.assert_array_equal(model.prefilter_x.numpy(),
-                                  spline_filter_matrix(nx, 3))
+    conv_y = jnp.asarray(180.0 / (EARTH_RADIUS * np.pi), dtype=jnp.float64)
+    conv_x = np.asarray((conv_y / jnp.abs(jnp.cos(
+        jnp.asarray(jgrid.lats) * (np.pi / 180.0))))[:, None])
+    px0, py0 = jgrid.mesh_xy
+    model.load_numpy_state({"conv_x": conv_x, "px0": px0, "py0": py0})
+    np.testing.assert_array_equal(model.conv_x.numpy(), conv_x)
+    np.testing.assert_array_equal(model.px0.numpy(), px0)
+    np.testing.assert_array_equal(model.py0.numpy(), py0)
     with pytest.raises(KeyError):
         model.load_numpy_state({"weights": np.zeros(3)})
     with pytest.raises(ValueError, match="shape"):

@@ -65,22 +65,29 @@ def test_plain_sweep_matches_the_dense_inverse(ny, nx):
     assert np.abs(both - my @ x @ mx.T).max() <= 1e-13 * scale
 
 
-@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("call", ["first", "repeated"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("order", [2, 3, 4, 5])
-def test_prefilter_on_the_cpu_is_the_dense_path(order, dtype, given):
+def test_prefilter_on_the_cpu_is_the_dense_path(order, dtype, call):
     """On the CPU ``prefilter`` is ``prefilter_dense``: the two dense
-    matmuls exactly, matrices given or built, and it launches nothing."""
+    matmuls by ``spline_filter_matrix`` exactly, and it launches nothing.
+    A first call builds the two operators; a repeated call builds none."""
     rng = np.random.RandomState(order)
     field = torch.tensor(rng.randn(2, 3, 11, 24), dtype=dtype)
     my = torch.tensor(TI.spline_filter_matrix(11, order), dtype=dtype)
     mx = torch.tensor(TI.spline_filter_matrix(24, order), dtype=dtype)
     want = torch.matmul(torch.matmul(my, field), mx.transpose(0, 1))
-    mats = (my, mx) if given else None
+    if call == "first":
+        TI._operator.cache_clear()
+    else:
+        TI.prefilter_dense(field, order)
+    built = TI._operator.cache_info().misses
     before = CP.LAUNCHES
-    assert torch.equal(TI.prefilter(field, order, mats), want)
-    assert torch.equal(TI.prefilter_dense(field, order, mats), want)
+    assert torch.equal(TI.prefilter(field, order), want)
+    assert torch.equal(TI.prefilter_dense(field, order), want)
     assert CP.LAUNCHES == before
+    built = TI._operator.cache_info().misses - built
+    assert built == (2 if call == "first" else 0)
 
 
 @pytest.mark.parametrize("device_type,order,dtype,banded", [
@@ -119,9 +126,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 def test_band_factors_are_uploaded_once(n, dtype):
     """``prefilter``'s factors: ``spline_band_factors`` in the field's
     dtype on its device, one tensor a (size, dtype, device)."""
-    dev = torch.device("cpu")
-    band = TI._band_tensor(n, dtype, dev)
-    assert TI._band_tensor(n, dtype, dev) is band
+    kw = dict(order=3, dtype=dtype, device=torch.device("cpu"))
+    band = TI._operator(TI.spline_band_factors, n, **kw)
+    assert TI._operator(TI.spline_band_factors, n, **kw) is band
     assert band.dtype == dtype and band.shape == (3, n)
     np.testing.assert_array_equal(
         band.numpy(), TI.spline_band_factors(n).astype(band.numpy().dtype))

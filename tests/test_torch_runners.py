@@ -18,6 +18,7 @@ import torch
 
 from lagrangiancoherence_tpu.testing import flows
 from lagrangiancoherence_tpu_torch import Field, Grid, ftle_pipeline
+from lagrangiancoherence_tpu_torch import devices as TD
 from lagrangiancoherence_tpu_torch.models import pipeline as TP
 from lagrangiancoherence_tpu_torch.parallel.mesh import batch_mesh
 from lagrangiancoherence_tpu_torch.runners import (ftle_series,
@@ -75,6 +76,39 @@ class TestFtleSeries:
                 series.data[i], single(u, v, s, 5, grid, settls_order=1))
             # a backward run stamps the window's first time (LCS.py:158)
             assert series.coords["time"][i] == times[s]
+
+    @pytest.mark.parametrize("shuffle_lons", [False, True],
+                             ids=["lons_ascending", "lons_shuffled"])
+    def test_era5_order_gives_identical_series(self, shuffle_lons):
+        """A record in ERA5's order (latitude 90 -> -90, longitudes
+        ascending or shuffled) goes up once a wind component as stored and
+        is put in order on the device: fields, labels and coordinates equal
+        those of the same record sorted beforehand on the host, and no host
+        copy is reordered."""
+        U, V, *_ = wind_fields()
+        lon_order = (np.random.RandomState(3).permutation(U.shape[2])
+                     if shuffle_lons else np.arange(U.shape[2]))
+
+        def era5(f):
+            data = np.ascontiguousarray(f.data[:, ::-1][:, :, lon_order])
+            coords = {**f.coords, "latitude": f.coords["latitude"][::-1],
+                      "longitude": f.coords["longitude"][lon_order]}
+            return Field(data, f.dims, coords, name=f.name)
+
+        U, V = era5(U), era5(V)
+        kw = dict(window=5, stride=3, settls_order=1, batch=2, device="cpu")
+        want = ftle_series(U.sortby("latitude").sortby("longitude"),
+                           V.sortby("latitude").sortby("longitude"), DT, **kw)
+        TD.reset_transfers()
+        got = ftle_series(U, V, DT, **kw)
+        assert TD.TRANSFERS == {"uploads": 2, "downloads": 4,
+                                "host_reorders": 0}
+        assert got.dims == want.dims and got.name == want.name
+        assert np.array_equal(got.data, want.data, equal_nan=True)
+        assert set(got.coords) == set(want.coords)
+        for k in want.coords:
+            assert got.coords[k].dtype == want.coords[k].dtype, k
+            assert np.array_equal(got.coords[k], want.coords[k]), k
 
     def test_forward_stamps_last(self):
         U, V, *_, times = wind_fields()

@@ -70,9 +70,8 @@ def _setup(cyclic: bool, order: int, dtype: torch.dtype):
     u = 20.0 + 15.0 * rng.randn(NT, ny, nx)
     v = 10.0 * rng.randn(NT, ny, nx)
     tu, tv = (torch.tensor(a, dtype=dtype) for a in (u, v))
-    state = TS.grid_state(grid, order, dtype=dtype, device="cpu")
-    mats = (state["prefilter_y"], state["prefilter_x"])
-    cu, cv = (prefilter(a, order=order, matrices=mats) for a in (tu, tv))
+    state = TS.grid_state(grid, dtype=dtype, device="cpu")
+    cu, cv = (prefilter(a, order=order) for a in (tu, tv))
     px0, py0 = state["px0"].clone(), state["py0"].clone()
     px0 += torch.tensor(rng.uniform(-3, 3, (ny, nx)), dtype=dtype)
     py0 += torch.tensor(rng.uniform(-3, 3, (ny, nx)), dtype=dtype)
