@@ -84,10 +84,18 @@ than twice the dense float32 GEMMs' own, <= 1e-13 in float64) and against
 its plain sweep, runs it on a second card where there is one, times it
 beside its bound and the dense GEMMs, and counts its launches in one
 resident field (2); it prints ``prefilter record:`` with its numbers.  The
-kernel record's last entry is ``spline_prefilter``'s, its ``launches``
-those of phase 4's main-path call (2).  ``--quick`` stops after phase 3d
-(build, and the kernels against their plain versions) and prints no result
-line; ``--prefilter`` runs phase 3d alone after the build.  ``--area``
+record's entry before the last is ``spline_prefilter``'s, its ``launches``
+those of phase 4's main-path call (2).  Phase 3e holds the gradient and
+norm kernels ``ftle_gradient`` and ``ftle_norm`` bit for bit against the
+PyTorch path of ``models/ftle.py`` (float32 on the flagship grid, also
+under a float64 default dtype, float64 on the facade's grid and on the
+area-of-influence box; NaN departures; ``compat`` true and false), runs one
+resident field under ``torch.cuda.set_sync_debug_mode("error")`` with one
+launch of each, and times both beside their bounds and the PyTorch path;
+it prints ``ftle record:``, the kernel record's last entry.  ``--quick``
+stops after phase 3e (build, and the kernels against their plain versions)
+and prints no result line; ``--prefilter`` runs phase 3d alone after the
+build, ``--ftle`` phase 3e.  ``--area``
 runs phase 8b alone, twice in one process, and prints no result line: its
 second pass shows the workflow's times without the first-use costs (kernel
 build, CUDA module loading, FFT plans) that the first pass of a process pays.
@@ -124,6 +132,8 @@ REPS = 3
 KERNEL_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/spline_gather.cu"
 PREFILTER_SOURCE = ("lagrangiancoherence_tpu_torch/ops/csrc/"
                     "spline_prefilter.cu")
+FTLE_SOURCE = "lagrangiancoherence_tpu_torch/ops/csrc/ftle_stencil.cu"
+FTLE_REPS = 50           # calls a trial when timing the gradient and norm
 # max |kernel - dense float64| / max |x| of the banded prefilter: a few
 # roundings of the solve in the working type, no truncation
 PREFILTER_F32_RTOL = 1e-6
@@ -875,10 +885,12 @@ def phase_facade(dev, card, check, sync, u64, v64, grid, by_path):
     log("facade stages, first call (ms): " + json.dumps(
         {k: round(v, 3) for k, v in clock.ms.items()})
         + f", wall {wall:.3f} ms [{card}]")
-    check(launches == expected and k1 == 0 and c["spline_prefilter"] == 2,
+    check(launches == expected and k1 == 0 and c["spline_prefilter"] == 2
+          and c["ftle_gradient"] == c["ftle_norm"] == 1,
           f"settls_step launches in the facade {launches} == {expected}, K1 "
           f"launches {k1} == 0, spline_prefilter {c['spline_prefilter']} "
-          f"== 2")
+          f"== 2, ftle_gradient {c['ftle_gradient']} and ftle_norm "
+          f"{c['ftle_norm']} == 1")
     inner = out.data[0, 5:-5]
     check(out.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
           and bool(np.isfinite(inner).all()),
@@ -1005,7 +1017,11 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
 
     def others(c):
         return sum(v for k, v in c.items()
-                   if k not in ("settls_step", "spline_prefilter"))
+                   if k not in ("settls_step", "spline_prefilter",
+                                "ftle_gradient", "ftle_norm"))
+
+    def gradient_norm(c):
+        return c["ftle_gradient"], c["ftle_norm"]
 
     # (a) 33 six-hourly levels resample to 17 twelve-hourly ones: 16 steps
     steps = (NT - 1) // 2
@@ -1020,11 +1036,12 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
         log(f"LCS(resample='12h') labelled from {yr}: {wall:.3f} ms wall, "
             f"launches {json.dumps(c)} [{card}]")
         check(c["settls_step"] == steps and c["spline_prefilter"] == 2
+              and gradient_norm(c) == (1, 1)
               and others(c) == 0 and TRANSFERS == ONE_CROSSING,
               f"{yr}: settls_step launches {c['settls_step']} == {steps}, "
-              f"spline_prefilter {c['spline_prefilter']} == 2, other "
-              f"kernels {others(c)} == 0; transfers "
-              f"{json.dumps(TRANSFERS)}")
+              f"spline_prefilter {c['spline_prefilter']} == 2, gradient "
+              f"and norm {gradient_norm(c)} == (1, 1), other kernels "
+              f"{others(c)} == 0; transfers {json.dumps(TRANSFERS)}")
     a, b = ftle[2300], ftle[2020]
     inner = a.data[0, 5:-5]
     check(a.shape == (1, COMMON_GRID_LATS.size, COMMON_GRID_LONS.size)
@@ -1050,10 +1067,12 @@ def phase_labels(dev, card, check, sync, u64, v64, grid, truncated):
         f"launches {json.dumps(c)} [{card}]")
     two_back = {**ONE_CROSSING, "downloads": 2}
     check(c["settls_step"] == NT - 1 and c["spline_prefilter"] == 2
+          and gradient_norm(c) == (0, 0)
           and others(c) == 0 and TRANSFERS == two_back,
           f"trajectories: settls_step launches {c['settls_step']} == "
-          f"{NT - 1}, spline_prefilter {c['spline_prefilter']} == 2, other "
-          f"kernels {others(c)} == 0; transfers {json.dumps(TRANSFERS)} == "
+          f"{NT - 1}, spline_prefilter {c['spline_prefilter']} == 2, "
+          f"gradient and norm {gradient_norm(c)} == (0, 0), other kernels "
+          f"{others(c)} == 0; transfers {json.dumps(TRANSFERS)} == "
           f"{json.dumps(two_back)}")
     labels = np.asarray(tx.coords["time"])
     digest = hashlib.sha256(tx.data.tobytes() + ty.data.tobytes()).hexdigest()
@@ -1395,12 +1414,13 @@ def phase_series(dev, card, check, grid, by_path):
 
 def reset_counts():
     from lagrangiancoherence_tpu_torch.devices import reset_transfers
-    from lagrangiancoherence_tpu_torch.ops import (cuda_interp,
+    from lagrangiancoherence_tpu_torch.ops import (cuda_ftle, cuda_interp,
                                                    cuda_prefilter,
                                                    cuda_settls, cuda_window)
     cuda_settls.LAUNCHES = cuda_interp.LAUNCHES = 0
     cuda_prefilter.LAUNCHES = 0
     cuda_window.reset_launches()
+    cuda_ftle.reset_launches()
     reset_transfers()
 
 
@@ -1546,7 +1566,8 @@ def phase_examples(dev, card, check, by_path):
         by_path[f"phase 11 {label}"] = c = launch_counts()
         total += c["settls_step"]
         others = sum(v for k, v in c.items()
-                     if k not in ("settls_step", "spline_prefilter"))
+                     if k not in ("settls_step", "spline_prefilter",
+                                  "ftle_gradient", "ftle_norm"))
         log(f"{label}: {wall:.3f} ms wall (its first call; the facade's "
             f"set-up was paid in phases 8-9); launches {json.dumps(c)} "
             f"[{card}]")
@@ -1635,10 +1656,13 @@ def phase_bench(card, check, want_sha, by_path):
                        "tier_window_gather.route": 1,
                        "tier_window_gather.gather": 1,
                        "pole_ladder_gather": 1, "empty_launch": 0,
-                       "spline_prefilter": 3}
-    routes = {"auto": ("20", {"settls_step": NT - 1, "spline_prefilter": 2}),
+                       "spline_prefilter": 3, "ftle_gradient": 0,
+                       "ftle_norm": 0}
+    ftle = {"ftle_gradient": 1, "ftle_norm": 1}
+    routes = {"auto": ("20", {"settls_step": NT - 1, "spline_prefilter": 2,
+                              **ftle}),
               "blockspec": ("2", {**BLOCKSPEC_LAUNCHES,
-                                  "spline_prefilter": 2})}
+                                  "spline_prefilter": 2, **ftle})}
     total = 0
     for engine, (reps, per_field) in routes.items():
         torch.cuda.synchronize()
@@ -1817,6 +1841,178 @@ def phase_prefilter(dev, card, check, grid, u64, v64):
     return record
 
 
+def bit_compare(got, want):
+    """``(identical, ulps, nan_equal, payload_equal)`` of two tensors of one
+    float dtype: identical = the same NaN points and the same bits at every
+    other; ulps = the largest distance in units in the last place between
+    their non-NaN values (0 where identical); payload_equal = the NaNs'
+    bits equal too."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False, float("inf"), False, False
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int64
+    mag = torch.iinfo(ints).max
+    gi, wi = got.contiguous().view(ints), want.contiguous().view(ints)
+    gnan, wnan = torch.isnan(got), torch.isnan(want)
+    nan_equal = bool(torch.equal(gnan, wnan))
+    both = ~gnan & ~wnan
+
+    def key(i):   # the float order as integers: -0 and +0 both 0
+        return torch.where(i < 0, -(i & mag), i).double()
+    ulps = float((key(gi) - key(wi)).abs()[both].max()) if both.any() \
+        else 0.0
+    same_bits = bool(torch.equal(gi[both], wi[both]))
+    payload_equal = nan_equal and bool(torch.equal(gi[gnan], wi[gnan]))
+    return nan_equal and same_bits, ulps, nan_equal, payload_equal
+
+
+def phase_ftle(dev, card, check, grid, u32, v32):
+    """Phase 3e: the gradient and norm kernels (``ops/cuda_ftle.py``)
+    against the PyTorch path of ``models/ftle.py`` on the card, bit for bit:
+    float32 on the resident grid (721 x 1440, also with the default dtype
+    float64, whose stack is float64), float64 on the facade's grid (360 x
+    721) and on the area-of-influence box (221 x 233), with NaN departures
+    at an edge row, the seam column and the interior, the norm with
+    ``compat`` true and false; one resident field under
+    ``torch.cuda.set_sync_debug_mode("error")`` (it never waits on the
+    host) with 2 launches; each kernel's time (CUDA events, median [min,
+    max] of 7 trials of ``FTLE_REPS`` calls) and device time beside its
+    bound and the PyTorch path's.  Returns its record."""
+    import torch
+    from lagrangiancoherence_tpu_torch import FTLEPipeline, Grid
+    from lagrangiancoherence_tpu_torch.api import (COMMON_GRID_LATS,
+                                                   COMMON_GRID_LONS)
+    from lagrangiancoherence_tpu_torch.bench import event_ms
+    from lagrangiancoherence_tpu_torch.models import ftle as F
+    from lagrangiancoherence_tpu_torch.ops import cuda_ftle as CF
+    log(f"== phase 3e: ftle_gradient and ftle_norm vs the PyTorch path on "
+        f"the card, bit for bit [{card}]")
+    facade = Grid(lats=COMMON_GRID_LATS, lons=COMMON_GRID_LONS,
+                  cyclic_x=True)
+    box = Grid(lats=np.linspace(-40.0, 15.0, 221),
+               lons=np.linspace(-90.0, -32.0, 233))
+    cases = [("resident 721x1440 float32", grid, torch.float32,
+              torch.float32),
+             ("resident 721x1440 float32, default dtype float64", grid,
+              torch.float32, torch.float64),
+             ("facade 360x721 float64", facade, torch.float64,
+              torch.float64),
+             ("area-of-influence box 221x233 float64", box, torch.float64,
+              torch.float64)]
+    default = torch.get_default_dtype()
+    identical, worst_ulps = True, 0.0
+    for label, g, dtype, dflt in cases:
+        px, py = flagship_positions(g)
+        ny, nx = g.shape
+        # NaN departures: the edge rows, the seam column, the interior
+        planted = ((px, 0, nx // 3), (py, ny - 1, 2 * nx // 3),
+                   (py, ny // 2, 0), (px, ny // 3, nx - 1),
+                   (px, ny // 2 + 7, nx // 2))
+        for a, i, j in planted:
+            a[i, j] = np.nan
+        x = torch.tensor(px, dtype=dtype, device=dev)
+        y = torch.tensor(py, dtype=dtype, device=dev)
+        torch.set_default_dtype(dflt)
+        try:
+            CF.reset_launches()
+            stack = F.flowmap_gradient(x, y, g)
+            norms = {c: F.ftle_norm(stack, compat=c) for c in (True, False)}
+            launches = dict(CF.LAUNCHES)
+            plain = F.flowmap_gradient_torch(x, y, g)
+            results = {"stack": bit_compare(stack, plain)}
+            for c, norm in norms.items():
+                results[f"norm compat={c}"] = bit_compare(
+                    norm, F.ftle_norm_torch(plain, compat=c))
+                # the norm kernel alone, on the same stack
+                results[f"norm compat={c}, same stack"] = bit_compare(
+                    norm, F.ftle_norm_torch(stack, compat=c))
+        finally:
+            torch.set_default_dtype(default)
+        torch.cuda.synchronize()
+        # the longitude stencil of the point east of each reads it
+        nan_at = all(bool(torch.isnan(n[i, (j + 1) % nx]))
+                     for n in norms.values() for _, i, j in planted)
+        for what, (same, ulps, nan_equal, payload) in results.items():
+            identical = identical and same
+            worst_ulps = max(worst_ulps, ulps)
+            check(same, f"{label} {what}: bit-identical to the PyTorch "
+                        f"path={same} (largest difference {ulps:g} ulp, NaN "
+                        f"points equal={nan_equal}, NaN bits equal="
+                        f"{payload})")
+        want_dtype = torch.promote_types(dtype, dflt)
+        check(launches == {"ftle_gradient": 1, "ftle_norm": 2}
+              and stack.dtype == want_dtype and nan_at
+              and stack.shape == (9, ny, nx),
+              f"{label}: launches {json.dumps(launches)} == 1 and 2, stack "
+              f"{tuple(stack.shape)} {stack.dtype} (== {want_dtype}), the "
+              f"points east of the planted NaNs NaN in both norms={nan_at}")
+        del x, y, stack, plain, norms
+
+    # one resident field: no host wait, two launches
+    model = FTLEPipeline(grid, settls_order=SETTLS_ORDER, interp_order=ORDER,
+                         dtype=torch.float32, device=dev)
+    model(u32, v32, DT)
+    torch.cuda.synchronize()
+    CF.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model(u32, v32, DT)
+        waited = "nothing"
+    except RuntimeError as e:
+        waited = f"RuntimeError: {e}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    per_field = dict(CF.LAUNCHES)
+    check(waited == "nothing"
+          and per_field == {"ftle_gradient": 1, "ftle_norm": 1},
+          f"one resident field under set_sync_debug_mode('error'): raised "
+          f"{waited!r}; launches {json.dumps(per_field)} == 1 and 1")
+
+    # times at the resident shape, float32, no NaN
+    px, py = flagship_positions(grid)
+    x = torch.tensor(px, device=dev)
+    y = torch.tensor(py, device=dev)
+    stack = F.flowmap_gradient(x, y, grid)
+    n = x.numel()
+    runs = {
+        "ftle_gradient": (lambda: F.flowmap_gradient(x, y, grid),
+                          lambda: F.flowmap_gradient_torch(x, y, grid),
+                          "ftle_gradient_kernel", (2 + 9) * n * 4,
+                          # map, six stencils, their divisions; sin/cos
+                          # not counted
+                          60 * n),
+        "ftle_norm": (lambda: F.ftle_norm(stack),
+                      lambda: F.ftle_norm_torch(stack), "ftle_norm_kernel",
+                      (9 + 1) * n * 4, 20 * n)}
+    rec = {}
+    for name, (kernel, torch_path, match, nbytes, ops) in runs.items():
+        b_ms, b_by, arith = bound(nbytes, ops)
+        k_ms = spread(event_ms(kernel, FTLE_REPS, device=dev))
+        t_ms = spread(event_ms(torch_path, FTLE_REPS, device=dev))
+        us, per_call = device_us(kernel, FTLE_REPS, match)
+        log(f"{name} (721x1440 float32): {k_ms[0]:.4f} ms [{k_ms[1]:.4f}, "
+            f"{k_ms[2]:.4f}]; device {us_text(us)} a launch ({per_call:g} "
+            f"a call); bound {b_ms:.5f} ms by {b_by} ({arith}), "
+            f"kernel/bound {k_ms[0] / b_ms:.2f}; the PyTorch path "
+            f"{t_ms[0]:.4f} ms [{t_ms[1]:.4f}, {t_ms[2]:.4f}] [{card}]")
+        rec[name] = {"ms": k_ms[0], "ms_min_max": k_ms[1:],
+                     "device_us_per_launch": us, "bound_ms": b_ms,
+                     "bound_by": b_by, "plain_ms": t_ms[0],
+                     "plain_ms_min_max": t_ms[1:]}
+    record = {"name": "ftle_stencil", "route": "cuda", "source": FTLE_SOURCE,
+              "replaces": None, "launches_per_field": sum(per_field.values()),
+              "bit_identical": identical, "max_ulps": worst_ulps,
+              "ms": rec["ftle_gradient"]["ms"] + rec["ftle_norm"]["ms"],
+              "plain_ms": (rec["ftle_gradient"]["plain_ms"]
+                           + rec["ftle_norm"]["plain_ms"]),
+              "bound_ms": (rec["ftle_gradient"]["bound_ms"]
+                           + rec["ftle_norm"]["bound_ms"]),
+              "bound_by": "bytes", "library_ms": None, "kernels": rec}
+    log("ftle record: " + json.dumps(record))
+    return record
+
+
 def log(msg=""):
     print(msg, flush=True)
 
@@ -1914,6 +2110,10 @@ def main() -> int:
     if "--prefilter" in sys.argv[1:]:
         phase_prefilter(dev, card, check, grid, u64, v64)
         log(f"chip_smoke --prefilter: {len(failures)} check(s) failed")
+        return 1 if failures else 0
+    if "--ftle" in sys.argv[1:]:
+        phase_ftle(dev, card, check, grid, u32, v32)
+        log(f"chip_smoke --ftle: {len(failures)} check(s) failed")
         return 1 if failures else 0
 
     def group_err(W, CW, px, py, f0, nf, order, row_offset=0):
@@ -2018,6 +2218,7 @@ def main() -> int:
         [("flagship", pxn, pyn),
          ("pole rows at +-2**27 deg, NaN positions", pxe, pye)])
     prefilter_rec = phase_prefilter(dev, card, check, grid, u64, v64)
+    ftle_rec = phase_ftle(dev, card, check, grid, u32, v32)
     if "--quick" in sys.argv[1:]:
         log(f"chip_smoke --quick: {len(failures)} check(s) failed")
         return 1 if failures else 0
@@ -2194,15 +2395,19 @@ def main() -> int:
     launches, k1_on_main = cuda_settls.LAUNCHES, cuda_interp.LAUNCHES
     window_on_main = sum(cuda_window.LAUNCHES.values())
     prefilter_on_main = cuda_prefilter.LAUNCHES
+    ftle_on_main = launch_counts()
+    ftle_on_main = {k: ftle_on_main[k] for k in ("ftle_gradient", "ftle_norm")}
     finite = bool(torch.isfinite(norm[2:-2]).all())
     log(f"first call {first_s:.3f} s; FTLE norm range "
         f"[{float(norm[2:-2].min()):.4g}, {float(norm[2:-2].max()):.4g}]")
     check(launches == expected and k1_on_main == 0 and window_on_main == 0
-          and prefilter_on_main == 2,
+          and prefilter_on_main == 2
+          and ftle_on_main == {"ftle_gradient": 1, "ftle_norm": 1},
           f"settls_step launches {launches} == {expected}, K1 launches "
           f"{k1_on_main} == 0, window and pole ladder launches "
           f"{window_on_main} == 0, spline_prefilter launches "
-          f"{prefilter_on_main} == 2 (one a wind component)")
+          f"{prefilter_on_main} == 2 (one a wind component), gradient and "
+          f"norm {json.dumps(ftle_on_main)} == 1 and 1")
     check(int(overflow) == 0, f"overflow {int(overflow)} == 0")
     check(norm.shape == (ny, nx) and finite,
           f"shape {tuple(norm.shape)}, rows [2:-2] finite={finite}")
@@ -2718,6 +2923,10 @@ def main() -> int:
         dict(prefilter_rec, launches=prefilter_on_main,
              empty_launch_us=empty_us,
              launches_new_paths={path: c["spline_prefilter"]
+                                 for path, c in by_path.items()}),
+        dict(ftle_rec, launches=sum(ftle_on_main.values()),
+             empty_launch_us=empty_us,
+             launches_new_paths={path: c["ftle_gradient"] + c["ftle_norm"]
                                  for path, c in by_path.items()})]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

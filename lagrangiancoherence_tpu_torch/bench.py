@@ -41,7 +41,8 @@ from .devices import resolve_device
 from .grid import global_quarter_degree_grid
 from .models.pipeline import FTLEPipeline, ftle_pipeline
 from .models.settls import ENGINES, grid_state, parcel_propagation_core
-from .ops import cuda_interp, cuda_prefilter, cuda_settls, cuda_window
+from .ops import (cuda_ftle, cuda_interp, cuda_prefilter, cuda_settls,
+                  cuda_window)
 from .ops.interp import interp_at_parcels_multi, prefilter
 from .ops.window_interp import windowed_interp_multi
 from .testing.oracle import REFERENCE_SECONDS_PER_FIELD
@@ -107,7 +108,8 @@ def launch_counts() -> dict:
     """Every launch counter of the port's kernels, by kernel."""
     return dict(cuda_window.LAUNCHES, settls_step=cuda_settls.LAUNCHES,
                 spline_gather=cuda_interp.LAUNCHES,
-                spline_prefilter=cuda_prefilter.LAUNCHES)
+                spline_prefilter=cuda_prefilter.LAUNCHES,
+                **cuda_ftle.LAUNCHES)
 
 
 def _since(before: dict) -> dict:

@@ -14,6 +14,13 @@ largest singular value in closed form, with no per-point SVD.
 A point with a NaN anywhere in its tensor is NaN in the output, as the
 reference's stack/dropna/unstack round trip leaves it
 (LagrangianCoherence LCS/LCS.py:145-157).
+
+On CUDA tensors of float32 or float64 each function launches one
+hand-written kernel (``ops/cuda_ftle.py``) that computes the same values as
+the PyTorch path below, with the row scale kept on the card
+(``ops/stencil.row_scale``), so a field neither waits on the host nor
+issues the path's ~60 small launches.  The CPU, other dtypes and grids
+below 5 x 5 take the PyTorch path.
 """
 from __future__ import annotations
 
@@ -21,10 +28,12 @@ import numpy as np
 import torch
 
 from ..grid import EARTH_RADIUS
+from ..ops import cuda_ftle
 from ..ops.filters import gaussian_filter
-from ..ops.stencil import derivative_spherical_coords
+from ..ops.stencil import derivative_spherical_coords, lat_scale, row_scale
 
-__all__ = ["flowmap_gradient", "ftle_norm", "ftle_from_departures"]
+__all__ = ["flowmap_gradient", "flowmap_gradient_torch", "ftle_norm",
+           "ftle_norm_torch", "ftle_from_departures"]
 
 
 def flowmap_gradient(x_dep: torch.Tensor, y_dep: torch.Tensor, grid,
@@ -35,6 +44,17 @@ def flowmap_gradient(x_dep: torch.Tensor, y_dep: torch.Tensor, grid,
     if sigma is not None:
         x_dep = gaussian_filter(x_dep, sigma=sigma)
         y_dep = gaussian_filter(y_dep, sigma=sigma)
+    if _gradient_kernel_applies(x_dep, y_dep, grid):
+        dx = row_scale(grid.lats, grid.lons, x_dep.dtype, x_dep.device)
+        return cuda_ftle.ftle_gradient(x_dep.contiguous(), y_dep.contiguous(),
+                                       dx, lat_scale(grid.lats))
+    return flowmap_gradient_torch(x_dep, y_dep, grid)
+
+
+def flowmap_gradient_torch(x_dep: torch.Tensor, y_dep: torch.Tensor,
+                           grid) -> torch.Tensor:
+    """``flowmap_gradient``'s PyTorch path (no smoothing), on any device:
+    the plain version that the gradient kernel is held against."""
     lon = x_dep * (np.pi / 180.0)
     colat = (y_dep - 90.0) * (np.pi / 180.0)  # colatitude (LCS.py:196)
     sin_colat = torch.sin(colat)
@@ -48,6 +68,17 @@ def flowmap_gradient(x_dep: torch.Tensor, y_dep: torch.Tensor, grid,
     zero = torch.zeros_like(X)
     return torch.stack([d(X, 1), d(X, 0), d(Y, 1), d(Y, 0), d(Z, 1), d(Z, 0),
                         zero, zero, zero])
+
+
+def _gradient_kernel_applies(x_dep: torch.Tensor, y_dep: torch.Tensor,
+                             grid) -> bool:
+    """Whether ``flowmap_gradient`` launches the kernel: (ny, nx) CUDA
+    tensors of one float dtype, a row a latitude, ny, nx >= 5."""
+    return (x_dep.device.type == "cuda" and x_dep.dtype in cuda_ftle.DTYPES
+            and y_dep.dtype == x_dep.dtype and y_dep.device == x_dep.device
+            and x_dep.ndim == 2 and y_dep.shape == x_dep.shape
+            and x_dep.shape[0] == grid.lats.shape[0]
+            and min(x_dep.shape) >= cuda_ftle.MIN_SIZE)
 
 
 def _sigma_max_2xk(rows) -> torch.Tensor:
@@ -66,6 +97,17 @@ def _sigma_max_2xk(rows) -> torch.Tensor:
 
 def ftle_norm(def_tensor: torch.Tensor, compat: bool = True) -> torch.Tensor:
     """Per-point matrix 2-norm of the (9, ny, nx) deformation stack."""
+    if def_tensor.device.type == "cuda" \
+            and def_tensor.dtype in cuda_ftle.DTYPES \
+            and def_tensor.ndim >= 1 and def_tensor.shape[0] == 9:
+        return cuda_ftle.ftle_norm(def_tensor.contiguous(), compat=compat)
+    return ftle_norm_torch(def_tensor, compat=compat)
+
+
+def ftle_norm_torch(def_tensor: torch.Tensor,
+                    compat: bool = True) -> torch.Tensor:
+    """``ftle_norm``'s PyTorch path, on any device: the plain version that
+    the norm kernel is held against."""
     t = def_tensor
     if compat:
         rows = ([t[0], t[1], t[2]], [t[3], t[4], t[5]])

@@ -50,6 +50,10 @@ _STEP_ARGTYPES = ([_PTR] * 10 + [_INT] * 4 + [_LL] + [_INT] * 3
                   + [ctypes.c_double] * 5 + [_PTR])
 # in out band_y band_x, batch, ny nx, stream
 _PREFILTER_ARGTYPES = [_PTR] * 4 + [_LL, _INT, _INT, _PTR]
+# x y dx out, ny nx, dy, out_f64, stream
+_GRADIENT_ARGTYPES = [_PTR] * 4 + [_INT, _INT, ctypes.c_double, _INT, _PTR]
+# stack out, n, compat, stream
+_NORM_ARGTYPES = [_PTR, _PTR, _LL, _INT, _PTR]
 SIGNATURES = {
     **{f"spline_gather_{t}": _GATHER_ARGTYPES for t in ("f32", "f64")},
     **{f"settls_step_{t}": _STEP_ARGTYPES for t in ("f32", "f64")},
@@ -57,6 +61,8 @@ SIGNATURES = {
     **{f"pole_ladder_gather_{t}": _LADDER_ARGTYPES for t in ("f32", "f64")},
     **{f"empty_launch_{t}": _LADDER_ARGTYPES for t in ("f32", "f64")},
     **{f"spline_prefilter_{t}": _PREFILTER_ARGTYPES for t in ("f32", "f64")},
+    **{f"ftle_gradient_{t}": _GRADIENT_ARGTYPES for t in ("f32", "f64")},
+    **{f"ftle_norm_{t}": _NORM_ARGTYPES for t in ("f32", "f64")},
 }
 
 

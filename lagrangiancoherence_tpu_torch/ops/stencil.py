@@ -11,8 +11,14 @@ Counterpart of ``lagrangiancoherence_tpu/ops/stencil.py``:
   metric scaling ``dx = (pi/180) dlon R cos(lat)``, ``dy = (pi/180) dlat R``,
   with the stencil stage in float32 even for float64 input (quirk Q6,
   LagrangianCoherence LCS/tools.py:258).
+
+``row_scale`` keeps ``dx`` on the device, once a grid, dtype and device,
+for the gradient kernel (``ops/cuda_ftle.py``); ``derivative_spherical_coords``
+forms the same tensor at every call.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -20,7 +26,8 @@ import torch
 from ..grid import EARTH_RADIUS
 from .interp import _div
 
-__all__ = ["fourth_order_derivative", "derivative_spherical_coords"]
+__all__ = ["fourth_order_derivative", "derivative_spherical_coords",
+           "lat_scale", "row_scale"]
 
 
 def _centered(arr: torch.Tensor, dim: int) -> torch.Tensor:
@@ -70,13 +77,41 @@ def derivative_spherical_coords(values: torch.Tensor, lats: np.ndarray,
     deriv = fourth_order_derivative(values.to(torch.float32), dim=dim,
                                     isglobal=isglobal).to(out_dtype)
     if dim == 0:
-        dy = (np.pi / 180.0) * (lats[1] - lats[0]) * EARTH_RADIUS
-        return _div(deriv, float(dy))
-    y = torch.tensor(lats, dtype=out_dtype,
-                     device=values.device) * (np.pi / 180.0)
+        return _div(deriv, lat_scale(lats))
+    return deriv / _row_scale(lats, lons[1] - lons[0], out_dtype,
+                              values.device)[:, None]
+
+
+def lat_scale(lats: np.ndarray) -> float:
+    """``dy = (pi/180) dlat R``, the latitude derivative's divisor."""
+    return float((np.pi / 180.0) * (lats[1] - lats[0]) * EARTH_RADIUS)
+
+
+def _row_scale(lats: np.ndarray, dlon: float, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """``dx = (pi/180) dlon R cos(lat)`` a row, ``cos`` in ``dtype``, the
+    product in ``dtype`` widened to the default dtype."""
+    y = torch.tensor(lats, dtype=dtype, device=device) * (np.pi / 180.0)
     # JAX scales by a numpy float64, which widens the result to the widest
     # float its x64 switch allows; the default dtype is that switch here
-    wide = torch.promote_types(out_dtype, torch.get_default_dtype())
-    dx = float((np.pi / 180.0) * (lons[1] - lons[0]) * EARTH_RADIUS) \
+    wide = torch.promote_types(dtype, torch.get_default_dtype())
+    return float((np.pi / 180.0) * dlon * EARTH_RADIUS) \
         * torch.cos(y).to(wide)
-    return deriv / dx[:, None]
+
+
+@lru_cache(maxsize=32)
+def _cached_row_scale(lats: bytes, dlon: float, dtype: torch.dtype,
+                      default: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    return _row_scale(np.frombuffer(lats), dlon, dtype, device)
+
+
+def row_scale(lats: np.ndarray, lons: np.ndarray, dtype: torch.dtype,
+              device) -> torch.Tensor:
+    """``derivative_spherical_coords``' row scale ``dx`` (ny,) for values in
+    ``dtype`` on ``device``, built by the same expression on first use and
+    kept there, one tensor per latitudes, longitude spacing, dtype, default
+    dtype and device.  Read-only: the caller shares it."""
+    lats = np.ascontiguousarray(lats, dtype=np.float64)
+    return _cached_row_scale(lats.tobytes(), float(lons[1] - lons[0]), dtype,
+                             torch.get_default_dtype(), torch.device(device))

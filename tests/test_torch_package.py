@@ -65,7 +65,8 @@ print("BAD", bad)
 
 
 SLICE_MODULES = ("api", "cli", "field", "convert", "devices", "ops.sht",
-                 "ops.regrid", "ops.stencil", "ops.morphology", "ops.idw",
+                 "ops.regrid", "ops.stencil", "ops.cuda_ftle",
+                 "ops.morphology", "ops.idw",
                  "models.ridges", "models.area", "models.ridge_filter",
                  "utils.io", "utils.times", "utils.logging", "runners",
                  "parallel.mesh", "parallel.halo", "parallel.pipeline",
@@ -161,7 +162,8 @@ def test_build_names_library_by_source_hash():
     assert path == _build.library_path()
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert [p.name for p in _build._sources()] == ["settls_step.cu",
+    assert [p.name for p in _build._sources()] == ["ftle_stencil.cu",
+                                                   "settls_step.cu",
                                                    "spline_gather.cu",
                                                    "spline_prefilter.cu",
                                                    "window_gather.cu"]
@@ -169,7 +171,8 @@ def test_build_names_library_by_source_hash():
     assert set(_build.SIGNATURES) == {
         f"{k}_{t}" for k in ("spline_gather", "settls_step",
                              "tier_window_gather", "pole_ladder_gather",
-                             "empty_launch", "spline_prefilter")
+                             "empty_launch", "spline_prefilter",
+                             "ftle_gradient", "ftle_norm")
         for t in ("f32", "f64")}
 
 
