@@ -61,7 +61,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         drv = harness.entry(traffic["entry"])(cfg, traffic, seed, device)
         sample = harness.Reservoir(traffic["sample_calls"], seed)
-        win = harness.window(drv, args.seconds, sample, device)
+        win = harness.window(drv, args.seconds, sample,
+                             harness.cards(cfg, device))
         answers = sample.answers()
         drv.release()
         del sample

@@ -11,6 +11,11 @@ the limit of every number that decides ``correct``, with the readings it
 was set from.  So a later cell, mix, entry point, configuration or metric
 is a new file and a new entry, and no file here changes.
 
+A configuration may state ``"cards": n`` (1 where it does not), and each
+cell that names it asks for as many ``chips``; the cell's cards are
+``cuda:0`` to ``cuda:(n - 1)`` (``cards``).  The harness waits on, traces
+and records every one of them.
+
 One run: set up and warm up the cell (``setup_s`` runs from the start of
 the process to the start of the window), call the entry point back to back
 for ``seconds`` (a closed loop: one caller, each call after the last
@@ -58,12 +63,16 @@ def cell(name: str, manifest: dict | None = None) -> dict:
     except StopIteration:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json") from None
     conf = next(c for c in man["configs"] if c["name"] == w["config"])
+    cfg = load_json(ROOT / conf["file"])
+    if w["chips"] != cfg.get("cards", 1):
+        raise SystemExit(f"workload {name!r} asks for {w['chips']} chip(s) "
+                         f"but its configuration {conf['name']!r} states "
+                         f"{cfg.get('cards', 1)} card(s)")
 
     def mine(m):
         return "workloads" not in m or name in m["workloads"]
 
-    return {"name": name, "entry": w,
-            "config": load_json(ROOT / conf["file"]),
+    return {"name": name, "entry": w, "config": cfg,
             "traffic": load_json(HERE / "traffic" / f"{w['traffic']}.json"),
             "limits": load_json(HERE / "limits" / f"{name}.json"),
             "end_to_end": [m for m in man["end_to_end"] if mine(m)],
@@ -94,9 +103,15 @@ def reader(metric: str):
     return mod
 
 
-def sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def cards(cfg: dict, device) -> list:
+    """The cell's devices: the configuration's ``cards`` CUDA cards from
+    ``device`` on (``cuda:0`` to ``cuda:(n - 1)`` from ``cuda:0``), or
+    ``device`` as many times off the card.  An entry for several cards
+    takes its devices from here."""
+    n = cfg.get("cards", 1)
+    if device.type != "cuda":
+        return [device] * n
+    return [torch.device("cuda", (device.index or 0) + i) for i in range(n)]
 
 
 class Reservoir:
@@ -146,11 +161,11 @@ class SpanLog(logging.Handler):
         log.setLevel(self._level)
 
 
-def window(drv, seconds: float, sample: Reservoir, device) -> dict:
+def window(drv, seconds: float, sample: Reservoir, devices: list) -> dict:
     """Calls back to back until ``seconds`` have passed at the end of a
-    call, then a synchronise: every call started is completed and
-    counted."""
-    sync(device)
+    call, then a synchronise of every card of ``devices``, the cell's list:
+    every call started is completed and counted."""
+    T.sync(devices)
     call_s = []
     t0 = time.perf_counter()
     while True:
@@ -161,7 +176,7 @@ def window(drv, seconds: float, sample: Reservoir, device) -> dict:
         sample.offer(len(call_s) - 1, out, drv.keep)
         if c1 - t0 >= seconds:
             break
-    sync(device)
+    T.sync(devices)
     window_s = time.perf_counter() - t0
     return {"calls": len(call_s), "units": len(call_s) * drv.units_per_call,
             "window_s": window_s, "call_s": call_s}
@@ -205,14 +220,18 @@ def tf32_holds(cfg: dict) -> bool:
             and torch.backends.cudnn.allow_tf32 == bool(cfg["tf32"]))
 
 
-def device_record(device) -> dict:
-    if device.type != "cuda":
+def device_record(devs: list) -> dict:
+    """The result line's ``device``: ``count`` the cell's cards,
+    ``memory_peak_bytes`` the fullest card's peak and
+    ``memory_peak_bytes_per_card`` each card's, in the cell's order."""
+    if devs[0].type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 0,
-                "memory_peak_bytes": 0}
-    rec = {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-           "count": 1,
-           "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))}
-    limit = smi(device, ("power.limit",))
+                "memory_peak_bytes": 0, "memory_peak_bytes_per_card": []}
+    peaks = [int(torch.cuda.max_memory_allocated(d)) for d in devs]
+    rec = {"platform": "gpu", "kind": torch.cuda.get_device_name(devs[0]),
+           "count": len(devs), "memory_peak_bytes": max(peaks),
+           "memory_peak_bytes_per_card": peaks}
+    limit = smi(devs[0], ("power.limit",))
     if limit:
         rec["power_limit"] = limit[0]
     return rec
@@ -221,23 +240,25 @@ def device_record(device) -> dict:
 def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
              t_start: float, c: dict | None = None, log=print) -> dict:
     """One run of cell ``name``; returns the result line's fields and the
-    run's other numbers.  ``c``: the cell (``cell(name)`` by default; the
-    tests pass a smaller one)."""
+    run's other numbers.  ``device``: the cell's first card (``cards``
+    gives the rest); ``c``: the cell (``cell(name)`` by default; the tests
+    pass a smaller one)."""
     c = c or cell(name)
     cfg, traffic = c["config"], c["traffic"]
+    devs = cards(cfg, device)
     set_tf32(cfg)
     drv = entry(traffic["entry"])(cfg, traffic, seed, device)
-    sync(device)
+    T.sync(devs)
     setup_s = time.perf_counter() - t_start
     sample = Reservoir(traffic["sample_calls"], seed)
     spans = SpanLog()
-    card = [smi(device, SMI_FIELDS)]
+    card = [[smi(d, SMI_FIELDS) for d in devs]]
     if traced:
         with spans:
-            win = window(drv, seconds, sample, device)
+            win = window(drv, seconds, sample, devs)
     else:
-        win = window(drv, seconds, sample, device)
-    card.append(smi(device, SMI_FIELDS))
+        win = window(drv, seconds, sample, devs)
+    card.append([smi(d, SMI_FIELDS) for d in devs])
     if not tf32_holds(cfg):
         raise RuntimeError(f"TF32 changed during the window; the "
                            f"configuration states tf32 = {cfg['tf32']}")
@@ -245,19 +266,20 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
               units_per_call=drv.units_per_call, **win)
     log(f"window: {win['calls']} calls, {win['units']} units in "
         f"{win['window_s']:.4f} s; set-up {setup_s:.3f} s")
-    if card[0]:
-        log(f"card at the window's start and end ({', '.join(SMI_FIELDS)}): "
-            f"{card[0]} {card[1]}")
+    for d, first, last in zip(devs, *card):
+        if first:
+            log(f"card {d.index} at the window's start and end "
+                f"({', '.join(SMI_FIELDS)}): {first} {last}")
     if traced:
         base = win["calls"]
         run.summary = T.device_summary(T.profile(
-            lambda i: drv.call(base + i), traffic["profile_calls"], device,
+            lambda i: drv.call(base + i), traffic["profile_calls"], devs,
             lead=1))
         needs = {n for m in c["per_layer"]
                  for n in getattr(reader(m["name"]), "NEEDS", ())}
         if "stack" in needs:
             run.stack = T.profile(lambda i: drv.call(base + i),
-                                  traffic["stack_calls"], device,
+                                  traffic["stack_calls"], devs,
                                   with_stack=True)
             run.stack_units = traffic["stack_calls"] * drv.units_per_call
             log(f"stack trace: {json.dumps(T.categories(run.stack))}")
@@ -267,7 +289,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
         v = reader(m["name"]).read(run)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    dev = device_record(device)
+    dev = device_record(devs)
     answers = sample.answers()
     drv.release()
     del sample
@@ -284,7 +306,12 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
            "device": dev}
     if traced:
         s = run.summary
-        out["device"].update(busy_s=s["busy_s"], window_s=s["window_s"])
+        busy = [s["busy_s_per_card"].get(d.index, 0.0) for d in devs]
+        # busy seconds averaged over the cell's cards: a card that idles
+        # lowers it
+        out["device"].update(busy_s=sum(busy) / len(devs),
+                             window_s=s["window_s"],
+                             busy_s_per_card=busy)
         out["breakdown"] = {"device_ops": s["device_ops"],
                             "idle_gaps": s["idle_gaps"]}
     out["checks"] = checks

@@ -19,7 +19,7 @@ def test_control_fails_and_program_passes(name):
     drv = harness.entry(c["traffic"]["entry"])(c["config"], c["traffic"],
                                                 SEED, device)
     sample = harness.Reservoir(c["traffic"]["sample_calls"], SEED)
-    harness.window(drv, 0.2, sample, device)
+    harness.window(drv, 0.2, sample, [device])
     answers = sample.answers()
     drv.release()
     limits = c["limits"]["limits"]

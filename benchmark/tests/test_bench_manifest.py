@@ -1,5 +1,7 @@
 """BENCHMARK.json against the rules the harness is built to: names and
 units, metrics and their cells, files found by name, chips and run length.
+A cell takes 1 or 4 chips, as many as its configuration's ``cards``, and at
+most max(1, cells // 4) cells take 4.
 """
 import json
 from pathlib import Path
@@ -60,7 +62,7 @@ def test_unique_and_used():
 
 @pytest.mark.parametrize("w", MAN["workloads"], ids=lambda w: w["name"])
 def test_cell_files_and_chips(w):
-    assert w["chips"] == 1
+    assert w["chips"] in (1, 4)
     conf = next(c for c in MAN["configs"] if c["name"] == w["config"])
     assert (ROOT / conf["file"]).is_file() and conf["reduced"] == []
     traffic = ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json"
@@ -69,6 +71,45 @@ def test_cell_files_and_chips(w):
     limits = json.loads((ROOT / "benchmark" / "limits"
                          / f"{w['name']}.json").read_text())
     assert limits["limits"]
+
+
+def chips_breaches(workloads: list, cards: dict) -> list[str]:
+    """What breaks the rule on chips: more four-card cells than
+    max(1, cells // 4), or a cell whose ``chips`` differ from the ``cards``
+    its configuration states (``cards``: configuration name to cards)."""
+    out = []
+    four = sum(w["chips"] == 4 for w in workloads)
+    if four > max(1, len(workloads) // 4):
+        out.append(f"{four} four-card cells of {len(workloads)}")
+    out += [f"{w['name']}: chips {w['chips']}, cards {cards[w['config']]}"
+            for w in workloads if w["chips"] != cards[w["config"]]]
+    return out
+
+
+def test_four_card_share_and_cards():
+    cards = {c["name"]: json.loads((ROOT / c["file"]).read_text()).get(
+        "cards", 1) for c in MAN["configs"]}
+    assert chips_breaches(MAN["workloads"], cards) == []
+
+
+def _manifest(cells: int, four: int) -> list:
+    return [{"name": f"w{i}", "config": "four" if i < four else "one",
+             "chips": 4 if i < four else 1} for i in range(cells)]
+
+
+@pytest.mark.parametrize("cells, four, ok", [
+    (1, 1, True), (3, 1, True), (4, 1, True), (4, 2, False), (7, 2, False),
+    (8, 2, True), (8, 3, False), (24, 6, True), (24, 7, False)])
+def test_four_card_share_at_and_beyond_the_limit(cells, four, ok):
+    breaches = chips_breaches(_manifest(cells, four), {"one": 1, "four": 4})
+    assert (breaches == []) is ok, breaches
+
+
+def test_cards_must_match_chips():
+    w = _manifest(4, 1)
+    assert chips_breaches(w, {"one": 1, "four": 1}) == ["w0: chips 4, cards 1"]
+    w[0]["chips"] = 1
+    assert chips_breaches(w, {"one": 1, "four": 4}) == ["w0: chips 1, cards 4"]
 
 
 @pytest.mark.parametrize("m", METRICS, ids=lambda m: m["name"])

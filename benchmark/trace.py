@@ -1,7 +1,7 @@
-"""Reading ``torch.profiler`` traces: device busy time, idle gaps labelled by
-what the host was doing, device time by kernel, and device time of the
-kernels launched inside a given Python function (from the profiler's
-Python stacks)."""
+"""Reading ``torch.profiler`` traces: device busy time, over all the cell's
+cards and card by card, idle gaps labelled by what the host was doing,
+device time by kernel, and device time of the kernels launched inside a
+given Python function (from the profiler's Python stacks)."""
 from __future__ import annotations
 
 import bisect
@@ -19,32 +19,37 @@ HOST_CATS = ("cpu_op", "user_annotation", "python_function")
 TOP = 10
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def sync(devices: list) -> None:
+    """Wait for every CUDA card of ``devices``, the cell's list: for a
+    one-card cell, one ``torch.cuda.synchronize`` of that card."""
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
-def profile(fn, calls: int, device, *, with_stack: bool = False,
+def profile(fn, calls: int, devices: list, *, with_stack: bool = False,
             lead: int = 0, tries: int = 3) -> dict:
     """``torch.profiler`` over ``lead`` + ``calls`` calls of ``fn(i)``,
-    each marked ``bench.call``, ended by a synchronise; taken again, up to
-    ``tries`` times, where it saw no device operation (the profiler drops
-    events now and then).  The ``lead`` calls take the profiler's start-up
-    and are not read by ``device_summary``.  Returns the trace's events,
-    the stretch's length by the host clock and ``lead``."""
+    each marked ``bench.call``, ended by a synchronise of every card of
+    ``devices``; taken again, up to ``tries`` times, where it saw no device
+    operation (the profiler drops events now and then).  The ``lead`` calls
+    take the profiler's start-up and are not read by ``device_summary``.
+    Returns the trace's events, the stretch's length by the host clock and
+    ``lead``."""
     from torch.profiler import ProfilerActivity, profile as _profile
+    cuda = any(d.type == "cuda" for d in devices)
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     for attempt in range(tries):
-        _sync(device)
+        sync(devices)
         with _profile(activities=acts, with_stack=with_stack) as prof:
             t0 = time.perf_counter()
             with torch.profiler.record_function("bench.stretch"):
                 for i in range(lead + calls):
                     with torch.profiler.record_function("bench.call"):
                         fn(i)
-                _sync(device)
+                sync(devices)
             wall = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "trace.json")
@@ -52,7 +57,7 @@ def profile(fn, calls: int, device, *, with_stack: bool = False,
             with open(path) as f:
                 events = json.load(f).get("traceEvents", [])
         dev = [e for e in events if e.get("cat") in DEVICE_CATS]
-        if dev or device.type != "cuda":
+        if dev or not cuda:
             break
         print(f"trace: the profiler saw no device operation "
               f"(try {attempt + 1} of {tries})", file=sys.stderr)
@@ -64,15 +69,28 @@ def _intervals(events, cats):
                    e) for e in events if e.get("cat") in cats and "ts" in e)
 
 
+def _busy(intervals) -> float:
+    """Microseconds covered by the union of (start, end) intervals sorted
+    by start."""
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in intervals:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return busy
+
+
 def device_summary(prof: dict) -> dict:
     """Over the traced window: busy seconds (the union of device
-    operations), the window's length, the device operations that took the
-    most time, and the longest idle gaps, each labelled by the innermost
-    host event running at its middle (or the last one that ended before
-    it).  All are read from the trace's own timestamps: the window runs
-    from the start of the first call after the ``lead`` ones to the later
-    of that call series' end and the last device operation's end, so the
-    profiler's start-up and the host clock's reading take no part."""
+    operations on all cards), each card's busy seconds (``busy_s_per_card``,
+    keyed by the card index a device operation carries, ``args.device``;
+    one that carries none counts on card 0), the window's length, the
+    device operations that took the most time, and the longest idle gaps of
+    the union, each labelled by the innermost host event running at its
+    middle (or the last one that ended before it).  All are read from the
+    trace's own timestamps: the window runs from the start of the first
+    call after the ``lead`` ones to the later of that call series' end and
+    the last device operation's end, so the profiler's start-up and the
+    host clock's reading take no part."""
     ev = prof["events"]
     calls = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in ev if e.get("name") == "bench.call"
@@ -88,14 +106,16 @@ def device_summary(prof: dict) -> dict:
            if t1 > s0 and t0 < s1]
     host = _intervals(ev, HOST_CATS)
     by_name: dict[str, float] = {}
-    busy, end, merged = 0.0, float("-inf"), []
+    by_card: dict[int, list] = {}
+    end, merged = float("-inf"), []
     for t0, t1, e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + (t1 - t0) * 1e-6
+        by_card.setdefault(int(e.get("args", {}).get("device", 0)),
+                           []).append((t0, t1))
         if t0 > end:
             merged.append([t0, t1])
         else:
             merged[-1][1] = max(merged[-1][1], t1)
-        busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
     gaps = []
     if merged:
@@ -106,7 +126,10 @@ def device_summary(prof: dict) -> dict:
     labelled = [((g1 - g0) * 1e-6, _label(host, (g0 + g1) / 2))
                 for g0, g1 in longest]
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
-    return {"busy_s": busy * 1e-6, "window_s": (s1 - s0) * 1e-6,
+    return {"busy_s": _busy((t0, t1) for t0, t1, _ in dev) * 1e-6,
+            "busy_s_per_card": {k: _busy(v) * 1e-6
+                                for k, v in sorted(by_card.items())},
+            "window_s": (s1 - s0) * 1e-6,
             "device_ops": [[n, s] for n, s in ops],
             "idle_gaps": [[lab, s] for s, lab in labelled],
             "device_op_count": len(dev)}
